@@ -1,0 +1,162 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds, not minutes).  The libraries go
+into ``kzg_rust_tpu_torch/build/`` (gitignored), named by a hash of the
+sources and flags, at the first launch in a process; all sources build in
+parallel.  ``KZG_TORCH_BUILD_DIR`` overrides the directory.
+
+:func:`launch` is the one place a kernel is launched: it checks the
+return code of the C entry point (``cudaGetLastError()`` after the launch)
+and adds one to :data:`LAUNCHES` for that entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_BINARY = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]
+_CMP = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _P]
+
+# entry point -> (source file, argtypes)
+ENTRY_POINTS = {
+    "kzg_fp_mont_mul": ("field_kernels.cu", _BINARY),
+    "kzg_fr_mont_mul": ("field_kernels.cu", _BINARY),
+    "kzg_fp_add": ("field_kernels.cu", _BINARY),
+    "kzg_fp_sub": ("field_kernels.cu", _BINARY),
+    "kzg_fr_add": ("field_kernels.cu", _BINARY),
+    "kzg_fr_sub": ("field_kernels.cu", _BINARY),
+    "kzg_fp_cmp": ("field_kernels.cu", _CMP),
+    "kzg_fr_cmp": ("field_kernels.cu", _CMP),
+    "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _I64, _I64, _I64, _P]),
+    "kzg_proj_add": ("curve_kernels.cu", [_P, _P, _P, _I64, _P]),
+    "kzg_proj_double": ("curve_kernels.cu", [_P, _P, _I64, _P]),
+}
+
+# Launches per entry point since the last reset_launches(): plain ints,
+# incremented only in launch().
+LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+
+# Per source: seconds its nvcc took and what ptxas reported (registers,
+# spills), filled by build().
+BUILD_INFO: dict[str, dict] = {}
+
+_LOCK = threading.Lock()
+_FUNCS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> str:
+    return os.environ.get("KZG_TORCH_BUILD_DIR") or os.path.join(_PKG, "build")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _lib_path(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, name), "rb") as fh:
+                h.update(name.encode() + fh.read())
+    stem = os.path.splitext(src)[0]
+    return os.path.join(build_dir(), f"lib{stem}-{h.hexdigest()[:12]}.so")
+
+
+def build() -> dict[str, str]:
+    """Compile every source that has no library yet, all in parallel.
+    Returns source -> library path; raises with nvcc's output on failure."""
+    sources = sorted({src for src, _ in ENTRY_POINTS.values()})
+    paths = {src: _lib_path(src) for src in sources}
+    todo = [src for src in sources if not os.path.exists(paths[src])]
+    if not todo:
+        return paths
+    os.makedirs(build_dir(), exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for src in todo:
+        tmp = f"{paths[src]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs[src] = (
+            tmp,
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        )
+    errors = []
+    for src, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_INFO[src] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, paths[src])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def _func(name: str):
+    fn = _FUNCS.get(name)
+    if fn is None:
+        with _LOCK:
+            if not _FUNCS:
+                paths = build()
+                libs = {src: ctypes.CDLL(path) for src, path in paths.items()}
+                for entry, (src, argtypes) in ENTRY_POINTS.items():
+                    f = getattr(libs[src], entry)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                    _FUNCS[entry] = f
+            fn = _FUNCS[name]
+    return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch entry point ``name`` on ``device``'s current stream: ``args``
+    are tensors (passed as device pointers) and ints."""
+    import torch
+
+    if device.type != "cuda":
+        raise RuntimeError(f"{name}: kernels launch only on CUDA tensors, got {device}")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise RuntimeError(f"{name}: tensors on {device}, current device is another")
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = _func(name)(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1

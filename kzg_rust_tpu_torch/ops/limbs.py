@@ -1,0 +1,427 @@
+"""Multi-precision modular arithmetic on 32-bit word tensors (device path).
+
+Counterpart of the JAX package's ``ops/limbs.py`` and ``ops/fields.py``.
+Every BLS12-381 field element is a vector of little-endian 32-bit words held
+in ``torch.int32`` (the bit pattern is the unsigned word): Fp is
+``[..., 12]`` with Montgomery radix R = 2^384, the same radix as the JAX
+package's 32 x 12-bit limbs, and Fr is ``[..., 8]`` with R = 2^256, which is
+NOT the JAX package's 2^264 (compare canonical integers, never raw Fr
+Montgomery words; :mod:`.jax_state` converts).  Values are canonical
+(< modulus) at every function boundary.
+
+On a CUDA tensor each arithmetic function launches its hand-written kernel
+(``csrc/field_kernels.cu``: K1 ``kzg_fp_mont_mul`` replaces the JAX package's
+``pallas_kernels.py:248`` ``mont_mul_fp_pallas``, K2 ``kzg_fr_mont_mul``
+replaces ``:252`` ``mont_mul_fr_pallas``; modular add, sub, compare and the
+domain sum are small launchers on the same device functions) or raises.  On
+a CPU tensor it runs the kernel's plain PyTorch version, ``*_plain`` below.
+PyTorch has no usable uint32 arithmetic, so the plain versions work in
+int64 on 16-bit half-words (24 for Fp, 16 for Fr): a column of half-word
+products stays below 2^37, and carries are resolved by repeated
+carry-save passes until none is left.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..golden.field import P, R
+from . import _build
+
+WORD_BITS = 32
+HALF_BITS = 16
+HALF_MASK = (1 << HALF_BITS) - 1
+
+# Launch counts of K1, K2 and the field launchers, by C entry point: plain
+# ints that _build.launch adds one to at each launch (shared with curve.py).
+LAUNCHES = _build.LAUNCHES
+
+
+class FieldSpec:
+    """Static per-field constants and the names of its kernels."""
+
+    def __init__(self, name: str, modulus: int, nwords: int):
+        self.name = name
+        self.modulus = modulus
+        self.nwords = nwords
+        self.nhalves = 2 * nwords
+        r = 1 << (WORD_BITS * nwords)
+        self.mont_r = r % modulus  # mont(1) as an int
+        self.r2 = (r * r) % modulus  # to-mont factor
+        self.nprime = (-pow(modulus, -1, r)) % r  # -N^-1 mod R
+        self.kernels = {
+            op: f"kzg_{name}_{op}" for op in ("mont_mul", "add", "sub", "cmp")
+        }
+        self._consts: dict = {}
+
+    def const(self, name, device) -> torch.Tensor:
+        """A cached constant on ``device`` (uploaded once, so a launch
+        sequence never waits on a host copy): an int ``name`` as [nwords]
+        int32 words; word tensors ``mod``, ``r2``, ``one`` (1), ``one_mont``,
+        ``zero``; and for the plain versions ``mod_h``, ``nprime_h``
+        [nhalves] int64 half-words."""
+        device = torch.device(device)
+        key = (name, str(device))
+        t = self._consts.get(key)
+        if t is None:
+            values = {
+                "mod": self.modulus,
+                "r2": self.r2,
+                "one": 1,
+                "one_mont": self.mont_r,
+                "zero": 0,
+            }
+            if isinstance(name, int):
+                t = torch.from_numpy(int_to_words(self.nwords, name))
+            elif name in values:
+                t = torch.from_numpy(int_to_words(self.nwords, values[name]))
+            else:
+                v = {"mod_h": self.modulus, "nprime_h": self.nprime}[name]
+                t = torch.tensor(
+                    [(v >> (HALF_BITS * k)) & HALF_MASK for k in range(self.nhalves)],
+                    dtype=torch.int64,
+                )
+            t = t.to(device)
+            self._consts[key] = t
+        return t
+
+    def __repr__(self):  # pragma: no cover
+        return f"FieldSpec({self.name}, {self.nwords} words)"
+
+
+FP = FieldSpec("fp", P, 12)
+FR = FieldSpec("fr", R, 8)
+_BY_WIDTH = {FP.nwords: FP, FR.nwords: FR}
+
+
+# ---------------------------------------------------------------------------
+# Host codecs (python ints <-> word arrays)
+# ---------------------------------------------------------------------------
+
+
+def int_to_words(nwords: int, value: int) -> np.ndarray:
+    """One python int -> [nwords] int32 little-endian 32-bit words."""
+    return ints_to_words(nwords, [value])[0]
+
+
+def ints_to_words(nwords: int, values) -> np.ndarray:
+    """Python ints -> [B, nwords] int32 words (the bit pattern is the
+    unsigned word)."""
+    buf = b"".join(int(v).to_bytes(4 * nwords, "little") for v in values)
+    arr = np.frombuffer(buf, dtype="<u4").reshape(len(values), nwords)
+    return arr.astype(np.uint32).view(np.int32).copy()
+
+
+def words_to_ints(arr) -> list[int]:
+    """[B, nwords] words (tensor or array) -> list of python ints."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    arr = np.ascontiguousarray(arr).view(np.uint32).astype("<u4")
+    nbytes = 4 * arr.shape[-1]
+    buf = arr.tobytes()
+    return [
+        int.from_bytes(buf[i : i + nbytes], "little") for i in range(0, len(buf), nbytes)
+    ]
+
+
+def to_device(spec: FieldSpec, values, device) -> torch.Tensor:
+    """Python ints -> [B, nwords] int32 tensor on ``device``."""
+    return torch.from_numpy(ints_to_words(spec.nwords, values)).to(device)
+
+
+def bytes_be_to_words(by: torch.Tensor) -> torch.Tensor:
+    """[..., 4k] uint8 big-endian integers -> [..., k] int32 little-endian
+    words, with torch ops on the tensor's own device (blob ingest runs on
+    the card: the host uploads raw bytes)."""
+    x = by.contiguous().view(torch.int32)  # bytes b0..b3 read little-endian
+    x = ((x >> 24) & 0xFF) | ((x >> 8) & 0xFF00) | ((x & 0xFF00) << 8) | (x << 24)
+    return x.flip(-1)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (int64 half-words; any device)
+# ---------------------------------------------------------------------------
+
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    """int32 words [..., n] -> int64 half-words [..., 2n]."""
+    w = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack((w & HALF_MASK, w >> HALF_BITS), dim=-1).flatten(-2)
+
+
+def _words(h: torch.Tensor) -> torch.Tensor:
+    """Normalized int64 half-words [..., 2n] -> int32 words [..., n]."""
+    h = h.unflatten(-1, (-1, 2))
+    w = h[..., 0] | (h[..., 1] << HALF_BITS)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _pad_top(t: torch.Tensor, k: int = 1) -> torch.Tensor:
+    return F.pad(t, (0, k))
+
+
+def _norm(t: torch.Tensor, with_top: bool = False):
+    """Signed int64 digits -> digits in [0, 2^16), by carry-save passes
+    until no carry is left.  The value is kept modulo 2^(16 * width); with
+    ``with_top`` also returns the carry out of the top digit (-1 for a
+    negative value)."""
+    top = t.new_zeros(t.shape[:-1]) if with_top else None
+    while True:
+        c = t >> HALF_BITS
+        if not bool(c.any()):
+            return (t, top) if with_top else t
+        if with_top:
+            top = top + c[..., -1]
+        t = (t & HALF_MASK) + F.pad(c[..., :-1], (1, 0))
+
+
+def _mul_cols(a: torch.Tensor, b: torch.Tensor, nout: int) -> torch.Tensor:
+    """Column sums of the half-word product a x b, truncated or zero-padded
+    to ``nout`` columns: one outer product, sheared so that every
+    anti-diagonal lines up in a column, then one sum."""
+    ka, kb = a.shape[-1], b.shape[-1]
+    prod = a.unsqueeze(-1) * b.unsqueeze(-2)  # [..., ka, kb]
+    width = ka + kb - 1
+    f = _pad_top(prod, ka)  # [..., ka, kb + ka]
+    cols = f.flatten(-2)[..., : ka * width].unflatten(-1, (ka, width)).sum(-2)
+    if nout <= width:
+        return cols[..., :nout]
+    return _pad_top(cols, nout - width)
+
+
+def _reduce_once(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Half-words [..., k(+1)] of a value < 2N -> canonical int32 words."""
+    mod = spec.const("mod_h", x.device)
+    if x.shape[-1] > mod.shape[-1]:
+        mod = _pad_top(mod, x.shape[-1] - mod.shape[-1])
+    d, top = _norm(x - mod, with_top=True)
+    out = torch.where((top < 0).unsqueeze(-1), x, d)
+    return _words(out[..., : spec.nhalves])
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1/K2: a * b * R^-1 mod N by SOS: T = a b, m = T N'
+    mod R, (T + m N) / R, one conditional subtract."""
+    k = spec.nhalves
+    t = _norm(_mul_cols(_halves(a), _halves(b), 2 * k))  # T < N^2 < R^2
+    m = _norm(_mul_cols(t[..., :k], spec.const("nprime_h", t.device), k))  # mod R
+    u = _norm(t + _mul_cols(m, spec.const("mod_h", t.device), 2 * k))  # < 2 R N
+    return _reduce_once(spec, u[..., k:])
+
+
+def add_mod_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    s = _norm(_pad_top(_halves(a) + _halves(b)))
+    return _reduce_once(spec, s)
+
+
+def sub_mod_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d, top = _norm(_halves(a) - _halves(b), with_top=True)
+    wrapped = _norm(d + spec.const("mod_h", d.device))  # drops 2^(16k): a - b + N
+    return _words(torch.where((top < 0).unsqueeze(-1), wrapped, d))
+
+
+def cmp_plain(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """mode 0: a == b; mode 1: a >= b as integers.  Returns bool [...]."""
+    a, b = torch.broadcast_tensors(a, b)
+    if mode == 0:
+        return (a == b).all(-1)
+    _, top = _norm(_halves(a) - _halves(b), with_top=True)
+    return top == 0
+
+
+def sum_mod_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Modular sum along axis 0 as a halving tree of plain adds."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        s = add_mod_plain(spec, x[:h], x[h : 2 * h])
+        x = torch.cat([s, x[2 * h :]]) if x.shape[0] % 2 else s
+    return x[0]
+
+
+# ---------------------------------------------------------------------------
+# Kernel launchers
+# ---------------------------------------------------------------------------
+
+
+def _index_map(x: torch.Tensor, shape: tuple, nwords: int):
+    """(div, mod, contiguous x) such that output element i reads element
+    ``(i / div) % mod`` of x; a broadcast that is not one contiguous run of
+    output dims is materialised instead."""
+    xs = (1,) * (len(shape) - (x.dim() - 1)) + tuple(x.shape[:-1])
+    kept = [i for i, (s, t) in enumerate(zip(shape, xs)) if s != 1 and t == s]
+    bcast = [i for i, (s, t) in enumerate(zip(shape, xs)) if s != 1 and t == 1]
+    lo, hi = (kept[0], kept[-1] + 1) if kept else (len(shape), len(shape))
+    if any(lo <= i < hi for i in bcast):
+        x, lo, hi = x.expand(shape + (nwords,)), 0, len(shape)
+    return math.prod(shape[hi:]), math.prod(shape[lo:hi]), x.contiguous()
+
+
+def _check(spec: FieldSpec, *xs: torch.Tensor) -> None:
+    for x in xs:
+        if x.dtype != torch.int32 or x.shape[-1] != spec.nwords:
+            raise ValueError(
+                f"{spec.name}: expected int32 [..., {spec.nwords}], got {x.dtype} {tuple(x.shape)}"
+            )
+        if x.device != xs[0].device:
+            raise ValueError(f"{spec.name}: operands on {xs[0].device} and {x.device}")
+
+
+def _launch_binary(name: str, spec: FieldSpec, a, b, out_dtype, out_last, *extra):
+    shape = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    n = math.prod(shape)
+    if n >= 1 << 31:
+        raise ValueError(f"{name}: {n} elements exceed the kernel's 32-bit index")
+    out = torch.empty(shape + out_last, dtype=out_dtype, device=a.device)
+    if n:
+        a_div, a_mod, a = _index_map(a, shape, spec.nwords)
+        b_div, b_mod, b = _index_map(b, shape, spec.nwords)
+        _build.launch(name, a.device, a, b, out, n, a_div, a_mod, b_div, b_mod, *extra)
+    return out
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product ``a * b * R^-1 mod N`` (operands broadcast)."""
+    _check(spec, a, b)
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    return _launch_binary(spec.kernels["mont_mul"], spec, a, b, torch.int32, (spec.nwords,))
+
+
+def add_mod(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check(spec, a, b)
+    if a.device.type == "cpu":
+        return add_mod_plain(spec, a, b)
+    return _launch_binary(spec.kernels["add"], spec, a, b, torch.int32, (spec.nwords,))
+
+
+def sub_mod(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check(spec, a, b)
+    if a.device.type == "cpu":
+        return sub_mod_plain(spec, a, b)
+    return _launch_binary(spec.kernels["sub"], spec, a, b, torch.int32, (spec.nwords,))
+
+
+def neg_mod(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return sub_mod(spec, spec.const("zero", a.device), a)
+
+
+def _compare(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    spec = _BY_WIDTH[a.shape[-1]]
+    _check(spec, a, b)
+    if a.device.type == "cpu":
+        return cmp_plain(a, b, mode)
+    return _launch_binary(spec.kernels["cmp"], spec, a, b, torch.uint8, (), mode).bool()
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _compare(a, b, 0)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return _compare(a, _BY_WIDTH[a.shape[-1]].const("zero", a.device), 0)
+
+
+def geq_mod(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a >= modulus (word vectors); bool [...]."""
+    return _compare(a, spec.const("mod", a.device), 1)
+
+
+def geq_const(spec: FieldSpec, a: torch.Tensor, bound: int) -> torch.Tensor:
+    """a >= bound (an int); bool [...]."""
+    return _compare(a, spec.const(bound, a.device), 1)
+
+
+def sum_mod(spec: FieldSpec, x: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Modular sum along axis 0 of ``[k, ..., nwords]`` (Montgomery or
+    canonical in, the same form out).  A plain modular sum, where the JAX
+    package used one raw column accumulation plus one REDC
+    (``limbs.sum_mont_redc``): callers that want that function's canonical
+    output apply :func:`from_mont`.  On the card, rows are summed in chunks
+    of ``chunk`` per thread until one row is left (two launches for 4096)."""
+    _check(spec, x)
+    if x.device.type == "cpu":
+        return sum_mod_plain(spec, x)
+    if spec is not FR:
+        raise ValueError("sum_mod: the card's kernel is built for Fr only")
+    inner = math.prod(x.shape[1:-1])
+    x = x.contiguous()
+    while x.shape[0] > 1:
+        k = x.shape[0]
+        out = torch.empty((-(-k // chunk),) + x.shape[1:], dtype=torch.int32, device=x.device)
+        _build.launch("kzg_fr_sum_rows", x.device, x, out, k, inner, chunk)
+        x = out
+    return x[0]
+
+
+def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, a)
+
+
+def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, spec.const("r2", a.device))
+
+
+def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, spec.const("one", a.device))
+
+
+def mont_pow_const(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^e (Montgomery in and out) for a constant exponent: 4-bit fixed
+    windows over a table a^0..a^15 (14 products), then per window four
+    squarings and one product (skipped for a zero digit)."""
+    one = spec.const("one_mont", a.device).expand_as(a).contiguous()
+    if exponent == 0:
+        return one
+    if exponent < 16:
+        acc = a
+        for bit in bin(exponent)[3:]:
+            acc = mont_sqr(spec, acc)
+            if bit == "1":
+                acc = mont_mul(spec, acc, a)
+        return acc
+    digits = [int(c, 16) for c in f"{exponent:x}"]  # MSB first, leading nonzero
+    table = [one, a]
+    for _ in range(14):
+        table.append(mont_mul(spec, table[-1], a))
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        for _ in range(4):
+            acc = mont_sqr(spec, acc)
+        if d:
+            acc = mont_mul(spec, acc, table[d])
+    return acc
+
+
+def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 via Fermat (a^(N-2)); Montgomery in and out.  inv(0) == 0."""
+    return mont_pow_const(spec, a, spec.modulus - 2)
+
+
+def batch_mont_inv(spec: FieldSpec, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverses along ``axis`` by a product tree and one Fermat inversion
+    (the JAX package's ``limbs.batch_mont_inv``).  The tree pairs the two
+    halves of the axis, not even and odd entries, so on axis 0 every operand
+    is a contiguous slice.  A zero anywhere zeroes the root and every
+    output; callers keep zeros out."""
+    xf = x.movedim(axis, 0).contiguous() if axis % x.dim() else x
+    length = xf.shape[0]
+    m = 1 << max(length - 1, 0).bit_length()
+    if m != length:  # pad with mont(1): product-neutral
+        pad = spec.const("one_mont", xf.device).expand((m - length,) + xf.shape[1:])
+        xf = torch.cat([xf, pad])
+    levels = []
+    v = xf
+    while v.shape[0] > 1:
+        levels.append(v)
+        h = v.shape[0] // 2
+        v = mont_mul(spec, v[:h], v[h:])
+    inv = mont_inv(spec, v)
+    for lv in reversed(levels):
+        h = lv.shape[0] // 2
+        inv = torch.cat([mont_mul(spec, lv[h:], inv), mont_mul(spec, lv[:h], inv)])
+    inv = inv[:length]
+    return inv.movedim(0, axis) if axis % x.dim() else inv

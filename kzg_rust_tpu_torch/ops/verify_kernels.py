@@ -1,0 +1,273 @@
+"""Batched device stages of ``verify_blob_kzg_proof_batch`` (device path).
+
+Counterpart of the JAX package's ``ops/verify_kernels.py``, as three stages
+of kernel launches on one stream (CUDA launches are asynchronous, so the
+host's Fiat-Shamir hashing overlaps stage 1):
+
+* stage 1, :func:`batch_points`: G1 decompression (an Fp square root), the
+  66-step window-base doubling chain and the GLV subgroup check;
+* :func:`bary_batch_from_bytes`: blob ingest, canonicality and the batched
+  barycentric evaluation;
+* stage 2, :func:`batch_stage2`: the RLC combination as one wide select
+  and tree sum over the stage-1 bases, minus one generator multiple.
+
+Every Fp and Fr product is K1/K2 and every point add and double is K3/K4
+(see :mod:`.limbs` and :mod:`.curve`); selects, stacks and byte handling are
+plain tensor ops.  On CPU tensors the same code runs the plain versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..golden.field import P as _P
+from . import curve as C
+from . import glv
+from . import limbs as L
+from . import msm as M
+from .limbs import FP, FR
+
+NUM_WINDOWS = glv.NUM_WINDOWS_GLV  # 66 base-4 windows per 128-bit GLV half
+
+# Signed base-4 digits of z^2 (the subgroup-check scalar), a host constant.
+_Z2_DIGITS = glv.recode_base4_signed([glv.Z2])[:, 0]  # [66] int8
+# Curve constant b = 4 in Montgomery form (for x^3 + 4 during decompression).
+_B4_MONT = 4 * FP.mont_r % _P
+# (p+1)/2: y is "lexicographically largest" iff y >= (p+1)/2.
+_HALF_P1 = (_P + 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# G1 decompression
+# ---------------------------------------------------------------------------
+
+
+def g1_uncompress_points(comp: torch.Tensor):
+    """[N, 48] uint8 ZCash-compressed G1 -> ([N, 3, 12] Montgomery
+    projective points, ok [N] bool).  The golden ``g1_uncompress`` rules:
+    compression bit required, canonical x < p, on-curve (the square root
+    must exist), strict infinity encoding (0xc0 then zeros), sign =
+    y > (p-1)/2.  Invalid rows yield ok=False (their points are unspecified)."""
+    dev = comp.device
+    flags = comp[:, 0].to(torch.int32)
+    comp_bit = (flags & 0x80) != 0
+    inf_bit = (flags & 0x40) != 0
+    sign_bit = (flags & 0x20) != 0
+    first = (flags & 0x1F).to(torch.uint8)
+    x = L.bytes_be_to_words(torch.cat([first[:, None], comp[:, 1:]], dim=1))
+    x_ok = ~L.geq_mod(FP, x)
+    # Clamp out-of-range x to 0 so the Montgomery ops stay in range (the row
+    # is already marked invalid; its point is never trusted).
+    x = torch.where(x_ok[:, None], x, 0)
+    xm = L.to_mont(FP, x)
+    rhs = L.add_mod(FP, L.mont_mul(FP, xm, L.mont_sqr(FP, xm)), FP.const(_B4_MONT, dev))
+    ym = L.mont_pow_const(FP, rhs, (_P + 1) // 4)
+    on_curve = L.eq(L.mont_sqr(FP, ym), rhs)
+    y_large = L.geq_const(FP, L.from_mont(FP, ym), _HALF_P1)
+    ym = torch.where((y_large != sign_bit)[:, None], L.neg_mod(FP, ym), ym)
+
+    inf_enc_ok = inf_bit & ~sign_bit & (first == 0) & (comp[:, 1:] == 0).all(dim=1)
+    ok = comp_bit & torch.where(inf_bit, inf_enc_ok, x_ok & on_curve)
+
+    one_m = FP.const("one_mont", dev).expand_as(xm)
+    inf = inf_bit[:, None]
+    xo = torch.where(inf, 0, xm)
+    yo = torch.where(inf, one_m, ym)
+    zo = torch.where(inf, 0, one_m)
+    return torch.stack([xo, yo, zo], dim=-2), ok
+
+
+# ---------------------------------------------------------------------------
+# Shared window-base chain + GLV subgroup check
+# ---------------------------------------------------------------------------
+
+
+def bases_chain(points: torch.Tensor):
+    """[N, 3, 12] -> (bases [W, N, 3, 12], bases2 [W, N, 3, 12]) with
+    bases[j] = 4^j P and bases2[j] = 2 * 4^j P: 2W - 1 K4 launches, each
+    writing its slice of the output in place."""
+    bases = torch.empty((NUM_WINDOWS,) + points.shape, dtype=torch.int32, device=points.device)
+    bases2 = torch.empty_like(bases)
+    bases[0] = points
+    for j in range(NUM_WINDOWS):
+        C.proj_double(bases[j], out=bases2[j])
+        if j + 1 < NUM_WINDOWS:
+            C.proj_double(bases2[j], out=bases[j + 1])
+    return bases, bases2
+
+
+def subgroup_check_from_bases(points, bases, bases2):
+    """GLV subgroup membership phi(P) == -[z^2]P for every point, with
+    [z^2]P assembled from the shared window bases via the constant signed
+    base-4 digits of z^2 (17 of 66 windows nonzero, so the selection is
+    static).  Infinity passes.  Returns bool [N]."""
+    parts = []
+    for j, d in enumerate(_Z2_DIGITS.tolist()):
+        if d == 0:
+            continue
+        p = (bases2 if abs(d) == 2 else bases)[j]
+        parts.append(C.point_neg(p) if d < 0 else p)
+    z2p = C.sum_points(torch.stack(parts))  # [N, 3, 12] = [z^2] P
+    beta = FP.const(C.BETA_MONT, points.device)
+    phix = L.mont_mul(FP, points[..., 0, :], beta)
+    phiy = points[..., 1, :]
+    phiz = points[..., 2, :]
+    x2, y2, z2 = z2p[..., 0, :], L.neg_mod(FP, z2p[..., 1, :]), z2p[..., 2, :]
+    eq_x = L.eq(L.mont_mul(FP, phix, z2), L.mont_mul(FP, x2, phiz))
+    eq_y = L.eq(L.mont_mul(FP, phiy, z2), L.mont_mul(FP, y2, phiz))
+    inf_a = L.is_zero(phiz)
+    inf_b = L.is_zero(z2)
+    return (eq_x & eq_y & ~inf_a & ~inf_b) | (inf_a & inf_b)
+
+
+def batch_points(comp_bytes: torch.Tensor):
+    """Stage 1.  comp_bytes [2B, 48] uint8, blob-major (row 2b = commitment
+    b, row 2b+1 = proof b, matching the stage-2 lane layout; padded rows
+    encode infinity) -> (bases, bases2, flags): ``bases``/``bases2``
+    [W, 2B, 3, 12] stay on the device as stage-2 inputs; ``flags`` [2]
+    int32 (flag 0: all points decode, flag 1: all in the subgroup)."""
+    points, dec_ok = g1_uncompress_points(comp_bytes)
+    bases, bases2 = bases_chain(points)
+    sub_ok = subgroup_check_from_bases(points, bases, bases2)
+    flags = torch.stack([dec_ok.all(), sub_ok.all()]).to(torch.int32)
+    return bases, bases2, flags
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: the RLC combination as one wide select and tree sum
+# ---------------------------------------------------------------------------
+
+
+def stage2_digits(n: int, r_powers, r_times_z) -> np.ndarray:
+    """Host recoding of all stage-2 scalars into the [W, 6n] int8 digit
+    matrix (GLV split + signed base-4), blob-major: each blob owns six
+    consecutive lanes [proof*k1, proof*k2, comm*k1, comm*k2, proofz*k1,
+    proofz*k2] (k2 = the GLV/phi half).  Lanes 0-1 of each blob form the
+    LHS group (sum r^i proof_i), lanes 2-5 the RHS group."""
+    k1s, k2s = glv.decompose_batch(r_powers)
+    q1s, q2s = glv.decompose_batch(r_times_z)
+    # Recode only the 4n unique scalars (the proof and commitment lanes
+    # share r^i's halves), then expand to the 6-lane layout with one take.
+    uniq = []
+    for i in range(n):
+        uniq += [k1s[i], k2s[i], q1s[i], q2s[i]]
+    rec = glv.recode_base4_signed(uniq)  # [W, 4n]
+    base = 4 * np.arange(n)[:, None]
+    idx = (base + np.array([0, 1, 0, 1, 2, 3])[None, :]).reshape(-1)
+    return np.ascontiguousarray(rec[:, idx])
+
+
+def _select_digit_multiple(bases, bases2, digits):
+    """Pick ``d * 4^j * P`` from {B, 2B} for signed digits in {-2..2}:
+    magnitude 2 -> 2B, 1 -> B, 0 -> infinity (X=Z=0), sign -> negated Y.
+    ``digits`` broadcasts against the leading axes of ``bases``."""
+    mag = digits.abs()
+    sel = torch.where((mag == 2)[..., None, None], bases2, bases)
+    x, y, z = sel.unbind(-2)
+    zero = (mag == 0)[..., None]
+    x = torch.where(zero, 0, x)
+    z = torch.where(zero, 0, z)
+    y = torch.where((digits < 0)[..., None], L.neg_mod(FP, y), y)
+    return torch.stack([x, y, z], dim=-2)
+
+
+def stage2_partials(bases, bases2, digits):
+    """Select the digit multiples from the bases and tree-sum each lane
+    group.  digits [W, 6n] blob-major (see :func:`stage2_digits`).  Returns
+    [2, 3, 12]: row 0 = sum r^i proof_i, row 1 = sum r^i C_i +
+    sum (r^i z_i) proof_i (the generator part not yet subtracted)."""
+    n = digits.shape[1] // 6
+    w = bases.shape[0]
+
+    def lanes(src):  # [W, 2n, 3, l] -> [W, n, 6, 3, l]
+        c = src[:, 0::2]
+        p = src[:, 1::2]
+        return torch.stack([p, p, c, c, p, p], dim=2)
+
+    d = digits.to(torch.int32).reshape(w, n, 6)
+    sel = _select_digit_multiple(lanes(bases), lanes(bases2), d)
+    # The GLV halves multiply phi(P) = (beta X, Y, Z); phi commutes with
+    # doubling and negation, so twisting the selected multiple is exact.
+    # Only the odd lanes (the k2 halves) pay the beta product.
+    beta = FP.const(C.BETA_MONT, bases.device)
+    sel[:, :, 1::2, 0, :] = L.mont_mul(FP, sel[:, :, 1::2, 0, :], beta)
+    lhs = C.sum_points(sel[:, :, :2].reshape(w * n * 2, 3, FP.nwords))
+    rhs = C.sum_points(sel[:, :, 2:].reshape(w * n * 4, 3, FP.nwords))
+    return torch.stack([lhs, rhs])
+
+
+def gen_mult(gen_table, digits):
+    """[s] G through the generator window table: one fixed-base multiply
+    (replaces the reference's n per-blob generator multiplies).  digits
+    [64, 1] signed base-16 (``msm.recode_signed_digits``)."""
+    syg = M.select_window_points(gen_table, digits)  # [64, 1, 3, 12]
+    return C.sum_points(syg)[0]  # [3, 12]
+
+
+def batch_stage2(bases, bases2, digits, gen_table, sy_digits):
+    """Stage 2, the whole RLC combination.  Returns [2, 3, 12]: row 0 =
+    sum r^i proof_i, row 1 = sum r^i C_i + sum (r^i z_i) proof_i -
+    [sum r^i y_i] G."""
+    out = stage2_partials(bases, bases2, digits)
+    rhs = C.proj_add(out[1], C.point_neg(gen_mult(gen_table, sy_digits)))
+    return torch.stack([out[0], rhs])
+
+
+def build_generator_table(device) -> torch.Tensor:
+    """[64, 8, 1, 3, 12] window table d * 16^j * G (d = 1..8), built once on
+    the host from the golden curve (affine, so Z = mont(1)) and uploaded."""
+    from ..golden import curve as gc
+
+    pts = []
+    base = gc.G1_GENERATOR
+    for _ in range(M.NUM_WINDOWS):
+        mult = base
+        for d in range(M.NUM_MULTIPLES):
+            pts.append(mult)
+            if d + 1 < M.NUM_MULTIPLES:
+                mult = gc.g1_add(mult, base)
+        for _ in range(M.WINDOW_BITS):
+            base = gc.g1_double(base)
+    table = C.points_to_proj(pts, device)
+    return table.reshape(M.NUM_WINDOWS, M.NUM_MULTIPLES, 1, 3, FP.nwords)
+
+
+# ---------------------------------------------------------------------------
+# Batched barycentric evaluation
+# ---------------------------------------------------------------------------
+
+
+def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor):
+    """Ingest + canonicality + batched barycentric evaluation:
+    blob_bytes [B, n, 32] uint8 BE, xs [B, 8] canonical -> (ys [B, 8]
+    canonical, ok bool scalar).  ``ok`` is False iff any field element is
+    >= r; the ys are garbage in that case and callers must raise.
+
+    The evaluations are laid out domain-major, [n, B, 8], so that the
+    product tree of the batch inversion and the domain sum run over
+    contiguous halves and rows of axis 0."""
+    evals = L.bytes_be_to_words(blob_bytes.transpose(0, 1))  # [n, B, 8], on the card
+    ok = ~L.geq_mod(FR, evals).any()
+    return bary_batch(ctx, evals, xs), ok
+
+
+def bary_batch(ctx, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """evals [n, B, 8] canonical, xs [B, 8] canonical -> ys [B, 8]
+    canonical: y = (x^n - 1)/n * sum_i e_i w_i / (x - w_i).  Callers
+    guarantee every x is out of the domain.
+
+    Form bookkeeping as in the JAX package: the evaluations stay canonical
+    (``roots_m2`` carries w R^2, so the two term products land on
+    (e w / (x - w)) R), and the domain sum, a plain modular sum of
+    Montgomery terms here, drops to canonical form with one ``from_mont``
+    on [B] (the JAX package's ``sum_mont_redc`` did both in one REDC)."""
+    mul = lambda u, v: L.mont_mul(FR, u, v)  # noqa: E731
+    x_m = L.to_mont(FR, xs)  # [B, 8]
+    d = L.sub_mod(FR, x_m[None], ctx.roots_m[:, None])  # [n, B, 8]
+    inv = L.batch_mont_inv(FR, d, axis=0)
+    terms = mul(mul(inv, ctx.roots_m2[:, None]), evals)  # Montgomery form
+    s = L.from_mont(FR, L.sum_mod(FR, terms))  # canonical sum
+    s = mul(s, ctx.inv_n_m)  # canonical x mont -> canonical
+    xn = L.mont_pow_const(FR, x_m, ctx.n)
+    return mul(s, L.sub_mod(FR, xn, FR.const("one_mont", xs.device)))
