@@ -6,11 +6,13 @@
 Phases, any failure of which exits non-zero without the final line:
 
 1. build the CUDA kernels from kzg_rust_tpu_torch/csrc/ (nvcc, sm_90a) and
-   print the build seconds, what ptxas reported, and the card's name and
-   power limit;
-2. hold every kernel against its plain PyTorch version on the card, at a
-   shape the main path gives it, exactly, edge lanes included, and time both
-   with CUDA events;
+   print the build seconds, what ptxas reported, the SASS instructions of
+   one Fp product of each core (where the toolkit has cuobjdump), and the
+   card's name and power limit;
+2. hold every kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it, exactly, edge lanes included, and time
+   both with CUDA events; the K4 chain also against as many one-step K4
+   launches;
 3. drive the main path, ``Kzg.verify_blob_kzg_proof_batch`` through
    ``TorchBackend()`` on the mainnet setup: the 22 mainnet batch vectors,
    then batches of n = 64 and n = 4096 sampled (numpy seed) from the six
@@ -18,7 +20,9 @@ Phases, any failure of which exits non-zero without the final line:
    (valid, swapped proof, non-canonical blob, malformed point, non-subgroup
    point; the n = 64 lanes cross-checked against the golden backend), the
    launch counts of one valid batch, stage times and peak memory;
-4. print the report lines and the ``kernels`` JSON line.
+4. check that every kernel of the path launched in the n = 64 batch and
+   that the window-base chain was one launch at both n, and print the
+   report lines and the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -41,22 +45,78 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0x5EED
 BAD_FROM_END = 3  # the corrupted lane sits near the end of the batch
 BATCH_SIZES = (64, 4096)  # a block's batch, and bulk sync; the first is cross-checked on golden
-# Built and held against its plain version, but the verify path does not
-# launch it (the barycentric domain sum runs in kzg_fr_sum_rows).
-OFF_PATH = {"kzg_fr_add"}
+# Built and held against their plain versions, but the verify path does not
+# launch them: the barycentric domain sum runs in kzg_fr_sum_rows, and the
+# window-base chain runs K4 as kzg_proj_double_chain, one launch for all its
+# doublings (kzg_proj_double is K4 alone, for checking and timing).
+OFF_PATH = {"kzg_fr_add", "kzg_proj_double"}
 # Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64:
 # K1 at stage 1's width (2 * 4096 points); K2 and the Fr launchers at a
 # product-tree level of the barycentric evaluation (4096 blobs x 64); the
 # domain sum at n = 64 (4096 rows of 64 blobs); K3 at the subgroup check's
-# first tree level (8 of its 17 window rows x 8192 points); K4 at the
-# doubling chain's width.
-SHAPES = {"fp": 8192, "fr": 262144, "sum": (4096, 64), "add": 65536, "double": 8192}
+# first tree level (8 of its 17 window rows x 8192 points) and at stage 2's
+# widest, the right-hand tree's first level (66 windows x 4096 blobs x 4
+# lanes, halved); K4 and its chain at the window-base chain's widths
+# (n = 4096 and n = 64).
+SHAPES = {"fp": 8192, "fr": 262144, "sum": (4096, 64), "add": (65536, 540672), "double": (8192, 128)}
 
 # Published H100 SXM peaks (NVIDIA data sheet) and the integer pipe rate
 # (CUDA C++ Programming Guide, arithmetic throughput table, compute
 # capability 9.0: 64 32-bit integer multiply-adds per clock per SM).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_CLOCK_PER_SM = 64
+# Fp products in a complete add and in a doubling as the curve kernels take
+# them: RCB's products by b3 = 12 are adds there (the same canonical value),
+# so 14 - 2 and 9 - 1.
+ADD_PRODUCTS, DOUBLE_PRODUCTS = 12, 8
+
+
+# Three kernels that differ only in what they do between loading two Fp
+# elements and storing one: nothing (an xor), K1's product, K3/K4's product.
+SASS_PROBE = r"""
+#include "field.cuh"
+using namespace kzg;
+#define PROBE(name, body)                                                               \
+  extern "C" __global__ void name(const uint32_t* a, const uint32_t* b, uint32_t* r) { \
+    uint32_t x[12], y[12], z[12];                                                      \
+    load_words<12>(x, a + 12 * threadIdx.x);                                           \
+    load_words<12>(y, b + 12 * threadIdx.x);                                           \
+    body;                                                                              \
+    store_words<12>(r + 12 * threadIdx.x, z);                                          \
+  }
+PROBE(probe_load_store, for (int j = 0; j < 12; j++) z[j] = x[j] ^ y[j])
+PROBE(probe_mont_mul, mont_mul<Fp>(z, x, y))
+PROBE(probe_fp_mont_mul, fp_mont_mul(z, x, y))
+"""
+
+
+def sass_counts() -> dict | None:
+    """SASS instructions (up to the last EXIT) of each SASS_PROBE kernel, or
+    None where the toolkit has no cuobjdump."""
+    from kzg_rust_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    src = os.path.join(_build.build_dir(), "sass_probe.cu")
+    cubin = src[:-3] + ".cubin"
+    with open(src, "w") as fh:
+        fh.write(SASS_PROBE)
+    subprocess.run(
+        [nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-I", _build.CSRC, "-o", cubin, src],
+        check=True,
+        capture_output=True,
+        timeout=300,
+    )
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True, text=True, timeout=60).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", part)
+        last_exit = max(i for i, op in enumerate(ops) if "EXIT" in op)
+        counts[name] = last_exit + 1
+    return counts
 
 
 def log(*a):
@@ -147,6 +207,7 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
     from kzg_rust_tpu_torch.golden.field import P, R
     from kzg_rust_tpu_torch.ops import curve as C
     from kzg_rust_tpu_torch.ops import limbs as L
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
 
     rng = np.random.default_rng(SEED)
     imad_s = sms * IMAD_PER_CLOCK_PER_SM * sm_clock_hz
@@ -156,7 +217,9 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, int_ops / imad_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps):
+    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps, keep=True):
+        """Hold ``kernel`` against ``plain`` on ``args``, time both and return
+        the row, kept in ``rows`` unless ``keep`` is false."""
         got = kernel(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -169,28 +232,29 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         ms = graph_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), 2)
         bms, by = bound(nbytes, int_ops)
-        rows.append(
-            {
-                "name": name,
-                "route": "cuda",
-                "source": source,
-                "replaces": replaces,
-                "launches": 0,
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bms,
-                "bound_by": by,
-                "library_ms": None,
-                "shape": [int(s) for s in args[0].shape],
-                "call_ms": call_ms,
-            }
-        )
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": None,
+            "shape": [int(s) for s in args[0].shape],
+            "call_ms": call_ms,
+        }
         log(
             f"kernel {name}: equal to plain at {list(args[0].shape)}; {ms:.4f} ms on the card "
             f"(CUDA graph replay; {call_ms:.4f} ms per call with the host), plain {plain_ms:.2f} ms, "
             f"bound {bms:.4f} ms by {by}"
         )
+        if keep:
+            rows.append(row)
+        return row
 
     def mont_products(nw):  # 32-bit multiply-adds of one CIOS product: 2 per word product
         return 2 * (2 * nw * nw + nw)
@@ -268,8 +332,10 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         50,
     )
 
-    # K3 with the exception lanes up front.
-    na = SHAPES["add"]
+    # K3 with the exception lanes up front, at the subgroup check's first
+    # tree level and at stage 2's first level at n = 4096 (the path's widest
+    # K3 launch): the 65,536 pairs tiled, Q rotated so every pair differs.
+    na, nw = SHAPES["add"]
     pts, base = random_points(rng, na, device)
     q, _ = random_points(rng, na, device)
     g1, g2 = base[0], base[1]
@@ -283,30 +349,82 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
     want = [gc.g1_add(g1, g1), None, g1, g1]
     if C.proj_to_points(got.cpu()) != want:
         raise AssertionError("K3: exception lanes disagree with the golden curve")
-    record(
-        "K3 kzg_proj_add",
-        C.proj_add,
-        C.proj_add_plain,
-        (pts, q),
-        csrc,
-        f"{pk}:348",
-        3 * na * 144,
-        na * 14 * mont_products(12),
-        20,
-    )
-    nd = SHAPES["double"]
-    dbl = pts[:nd].contiguous()
-    record(
-        "K4 kzg_proj_double",
-        C.proj_double,
-        C.proj_double_plain,
-        (dbl,),
-        csrc,
-        f"{pk}:354",
-        2 * nd * 144,
-        nd * 9 * mont_products(12),
-        50,
-    )
+    reps = -(-nw // na)
+    wide_p = pts.repeat(reps, 1, 1)[:nw].contiguous()
+    wide_q = torch.cat([q.roll(k, 0) for k in range(reps)])[:nw].contiguous()
+    wide_q[:4] = lanes_q
+    add_rows = [
+        record(
+            "K3 kzg_proj_add",
+            C.proj_add,
+            C.proj_add_plain,
+            (a, b),
+            csrc,
+            f"{pk}:348",
+            3 * a.shape[0] * 144,
+            a.shape[0] * ADD_PRODUCTS * mont_products(12),
+            r,
+            keep=False,
+        )
+        for a, b, r in ((pts, q, 20), (wide_p, wide_q, 5))
+    ]
+
+    # K4: one step, and the chain as bases_chain launches it, at stage 1's
+    # widths (2 x 4096 and 2 x 64 points).  The chain is held against its
+    # plain version and against as many one-step launches.
+    steps = 2 * V.NUM_WINDOWS - 1
+    dbl_rows = []
+    for nd in SHAPES["double"]:
+        dbl = pts[:nd].contiguous()
+        one = record(
+            "K4 kzg_proj_double",
+            C.proj_double,
+            C.proj_double_plain,
+            (dbl,),
+            csrc,
+            f"{pk}:354",
+            2 * nd * 144,
+            nd * DOUBLE_PRODUCTS * mont_products(12),
+            50,
+            keep=False,
+        )
+        by_steps = torch.empty((steps,) + dbl.shape, dtype=dbl.dtype, device=device)
+        cur = dbl
+        for k in range(steps):
+            cur = C.proj_double(cur, out=by_steps[k])
+        chained = C.proj_double_chain(dbl, steps)
+        torch.cuda.synchronize()
+        if not torch.equal(chained, by_steps):
+            raise AssertionError(f"K4 chain at [{nd}]: disagrees with {steps} one-step launches")
+        log(f"kernel K4 chain: equal to {steps} one-step K4 launches at [{nd}]")
+        chain = record(
+            "K4 kzg_proj_double_chain",
+            C.proj_double_chain,
+            C.proj_double_chain_plain,
+            (dbl, steps),
+            csrc,
+            f"{pk}:354",
+            (steps + 1) * nd * 144,
+            steps * nd * DOUBLE_PRODUCTS * mont_products(12),
+            10,
+            keep=False,
+        )
+        chain["steps"] = steps
+        chain["one_step_ms"] = one["ms"]
+        chain["one_step_bound_ms"] = one["bound_ms"]
+        chain["one_step_plain_ms"] = one["plain_ms"]
+        chain["steps_x_one_step_ms"] = steps * one["ms"]
+        log(
+            f"kernel K4 chain at [{nd}]: {chain['ms']:.4f} ms for {steps} steps in one launch against "
+            f"{steps} x {one['ms']:.4f} = {steps * one['ms']:.4f} ms as one-step launches"
+        )
+        dbl_rows.append(chain)
+
+    # The kernels line: K3 at the widest launch and K4 as the chain, each
+    # with its narrower shape beside it.
+    add_rows[1]["at_narrow"] = add_rows[0]
+    dbl_rows[0]["at_narrow"] = dbl_rows[1]
+    rows += [add_rows[1], dbl_rows[0]]
     return rows
 
 
@@ -512,6 +630,16 @@ def main() -> int:
                 spills = line.strip()
             elif "registers" in line and kernel:
                 log(f"build: {src} {kernel}: {line.split(':')[-1].strip()}; {spills}")
+    sass = sass_counts()
+    if sass is None:
+        log("sass: no cuobjdump in the CUDA toolkit; instructions per Fp product not counted")
+    else:
+        base = sass["probe_load_store"]
+        log(
+            f"sass: instructions per Fp product on sm_90a: mont_mul<Fp> (K1) {sass['probe_mont_mul'] - base}, "
+            f"fp_mont_mul (K3, K4) {sass['probe_fp_mont_mul'] - base} (probe kernels {json.dumps(sass)}, "
+            f"less the load/store probe's {base})"
+        )
     card = nvidia_smi("name,power.limit")
     log(card)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -528,13 +656,17 @@ def main() -> int:
 
     # Phase 4: report.
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
-    for row in rows:
+    for row in rows + [r["at_narrow"] for r in rows if "at_narrow" in r]:
         entry = row["name"].split()[-1]
         row["launches"] = report["launches"][small][entry]
         row[f"launches_n{large}"] = report["launches"][large][entry]
     missing = [e for e, c in report["launches"][small].items() if c == 0 and e not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels of the path never launched by the n={small} batch: {missing}")
+    for n in BATCH_SIZES:  # the window-base chain is one launch, with no one-step K4 beside it
+        got = (report["launches"][n]["kzg_proj_double_chain"], report["launches"][n]["kzg_proj_double"])
+        if got != (1, 0):
+            raise AssertionError(f"n={n}: chain and one-step K4 launches {got}, expected (1, 0)")
     for row in rows:
         log(f"launches: {row['name']}: {row['launches']} in one n={small} batch, {row[f'launches_n{large}']} in one n={large} batch")
     log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))

@@ -4,20 +4,53 @@
 // Montgomery form; the point at infinity is (0, mont(1), 0).
 //
 // K3 replaces kzg_rust_tpu/ops/pallas_kernels.py:348 proj_add_pallas and K4
-// replaces :354 proj_double_pallas (factory _make_proj_op :262).  What bounds
-// them here: integer multiply-adds.  An add is 14 Fp Montgomery products
-// (two by b3) and a doubling 9, 312 word products each, against 432 or 288
-// bytes of traffic per point, so both are compute-bound by a wide margin.
-// The design keeps one point pair per thread with every coordinate and
-// temporary in registers and the whole formula in one residency (no
-// intermediate ever reaches device memory), which is what the fused Pallas
-// kernel did in VMEM.  The operation order is curve.py's (proj_add :122,
-// proj_double :184), so every output coordinate is the same canonical
-// Montgomery integer as the JAX package's; its lazy-reduction adds, which
-// only feed products, become canonical adds here, which leave the products
-// unchanged.
+// replaces :354 proj_double_pallas (factory _make_proj_op :262).  K4 also
+// runs as a chain, out[k] = 2^(k+1) P for k < steps, in one launch: the
+// window-base chain of stage 1 (2W - 1 = 131 doublings), which the JAX
+// package runs as one lax.scan (kzg_rust_tpu/ops/verify_kernels.py:122).
 //
-// Points are [n, 3, 12] 32-bit words, contiguous.  C interface as in
+// What bounds them on this card.  An add is 12 Fp Montgomery products and a
+// doubling 8 (the products by b3 = 12 of curve.py are four adds here, which
+// give the same canonical value); each product is ~600 32-bit multiply-adds against
+// 432 or 288 bytes of traffic per point, so at the wide levels of the path
+// (K3 over 65,536 to 1,081,344 point pairs) the integer multiply-add pipe is
+// the bound.  At the narrow levels (K3's upper tree levels, the chain over
+// 128 or 8,192 points: one warp or less per SM sub-partition) the bound is
+// latency: the dependent carry chains of one product, and for the chain
+// 131 doublings in sequence.
+//
+// What the design does about it.
+// - The products run on PTX carry chains and wide multiplies (field.cuh
+//   fp_mont_mul): 902 instructions a product against the 1,113 of the
+//   64-bit C arithmetic of mont_mul<Fp> that K1 keeps.
+// - K3 stages its block's operands and results through shared memory with
+//   coalesced 16-byte accesses (a point is 144 B = 9 x 16 B, and each
+//   thread's 16-byte shared loads hit distinct banks, 9 being odd).  The
+//   operands stay in shared memory and are reloaded where the formula uses
+//   them, and temporaries wait there for their last use once a coordinate
+//   is spent, so that at most four 12-word values are live in registers
+//   beside a product: under 128 registers at 128 threads, 4 blocks (16
+//   warps) per SM, with no spills.
+// - Both kernels choose their block size from n (128, 64 or 32 threads), so
+//   that a narrow launch still spreads over the SMs.
+// - The chain keeps the point in registers from one doubling to the next and
+//   writes each step with 16-byte stores: one launch instead of 131, so the
+//   host enqueues one call and the card runs the steps back to back.  Four
+//   lanes share each point and split the doubling's independent products,
+//   so a step waits for two products in a row, not eight, and a narrow
+//   chain occupies four times as many warps.
+// - The tensor cores and TMA are not used.  The operands are 12-word
+//   integers that differ for every point, so no tile is shared across rows
+//   for a matrix product to reuse; and a block moves a few kilobytes once,
+//   which coalesced 16-byte loads already do at full rate.
+//
+// Every output coordinate is the canonical Montgomery integer of the same
+// formula as curve.py (proj_add :122, proj_double :184), hence the same
+// words as the JAX package's: canonical arithmetic gives one value whatever
+// the evaluation order, and its lazy-reduction adds only feed products.
+//
+// Points are [n, 3, 12] 32-bit words, contiguous, 16-byte aligned (the
+// entry points return cudaErrorInvalidValue otherwise).  C interface as in
 // field_kernels.cu: launch on the given stream, return cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -28,8 +61,8 @@ using namespace kzg;
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int N = Fp::N;
+constexpr int kVecs = 9;  // 16-byte vectors per point; 3 per coordinate
 
 struct Elt {
   uint32_t w[N];
@@ -37,112 +70,246 @@ struct Elt {
 
 __device__ __forceinline__ Elt mul(const Elt& a, const Elt& b) {
   Elt r;
-  mont_mul<Fp>(r.w, a.w, b.w);
+  fp_mont_mul(r.w, a.w, b.w);
   return r;
 }
 
 __device__ __forceinline__ Elt add(const Elt& a, const Elt& b) {
   Elt r;
-  add_mod<Fp>(r.w, a.w, b.w);
+  fp_add(r.w, a.w, b.w);
   return r;
 }
 
 __device__ __forceinline__ Elt sub(const Elt& a, const Elt& b) {
   Elt r;
-  sub_mod<Fp>(r.w, a.w, b.w);
+  fp_sub(r.w, a.w, b.w);
   return r;
 }
 
-__device__ __forceinline__ Elt b3() {
+// b3 v = 12 v by four adds: the canonical value of the product by mont(12)
+// that curve.py takes, at a tenth of its instructions.
+__device__ __forceinline__ Elt times_b3(const Elt& v) {
+  const Elt v2 = add(v, v);
+  const Elt v4 = add(v2, v2);
+  return add(add(v4, v4), v4);
+}
+
+// One coordinate from shared memory.  asm volatile keeps each reload where
+// the formula needs it, so the compiler cannot hold the operand in
+// registers across the products instead.
+__device__ __forceinline__ Elt lds(const uint4* s) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
   Elt r;
 #pragma unroll
-  for (int j = 0; j < N; j++) r.w[j] = FP_B3_MONT[j];
+  for (int k = 0; k < 3; k++)
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r.w[4 * k]), "=r"(r.w[4 * k + 1]), "=r"(r.w[4 * k + 2]),
+                   "=r"(r.w[4 * k + 3])
+                 : "r"(a + 16 * k));
   return r;
 }
 
-__device__ __forceinline__ Elt load(const uint32_t* __restrict__ p) {
+__device__ __forceinline__ void sts(uint4* s, const Elt& v) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
+#pragma unroll
+  for (int k = 0; k < 3; k++)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a + 16 * k),
+                 "r"(v.w[4 * k]), "r"(v.w[4 * k + 1]), "r"(v.w[4 * k + 2]),
+                 "r"(v.w[4 * k + 3])
+                 : "memory");
+}
+
+__device__ __forceinline__ Elt ldg(const uint4* __restrict__ g) {
   Elt r;
-  load_words<N>(r.w, p);
+#pragma unroll
+  for (int k = 0; k < 3; k++) {
+    const uint4 v = __ldg(g + k);
+    r.w[4 * k] = v.x;
+    r.w[4 * k + 1] = v.y;
+    r.w[4 * k + 2] = v.z;
+    r.w[4 * k + 3] = v.w;
+  }
   return r;
 }
 
-__device__ __forceinline__ void store(uint32_t* __restrict__ p, const Elt& v) {
-  store_words<N>(p, v.w);
-}
-
-__global__ void __launch_bounds__(kThreads) proj_add_kernel(
-    const uint32_t* __restrict__ p, const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
+// K3.  Thread t adds point pair t of the block's tile; X at vectors 0-2 of
+// a point (P's tile slot a, Q's b), Y at 3-5, Z at 6-8.  The products of X
+// come first, then those of Y and Z; a coordinate's slots take temporaries
+// once its last product is done, so at most four 12-word temporaries are
+// live in registers beside the product being taken.  X3 waits in b's Z slot
+// until t3 leaves a's X slot.  The block then copies the tile of results
+// out of the P slots.
+template <int T>
+__global__ void __launch_bounds__(T, 512 / T) proj_add_kernel(
+    const uint4* __restrict__ p, const uint4* __restrict__ q, uint4* __restrict__ out,
     uint32_t n) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* pp = p + (size_t)i * 3 * N;
-  const uint32_t* qq = q + (size_t)i * 3 * N;
-  const Elt x1 = load(pp), y1 = load(pp + N), z1 = load(pp + 2 * N);
-  const Elt x2 = load(qq), y2 = load(qq + N), z2 = load(qq + 2 * N);
-
-  const Elt t0 = mul(x1, x2);
-  const Elt t1 = mul(y1, y2);
-  const Elt t2 = mul(z1, z2);
-  const Elt t3 = sub(mul(add(x1, y1), add(x2, y2)), add(t0, t1));  // X1Y2 + X2Y1
-  const Elt t4 = sub(mul(add(y1, z1), add(y2, z2)), add(t1, t2));  // Y1Z2 + Y2Z1
-  const Elt t5 = sub(mul(add(x1, z1), add(x2, z2)), add(t0, t2));  // X1Z2 + X2Z1
-  const Elt three_t0 = add(add(t0, t0), t0);
-  const Elt bt2 = mul(b3(), t2);
-  const Elt z3t = add(t1, bt2);
-  const Elt t1m = sub(t1, bt2);
-  const Elt y3t = mul(b3(), t5);
-  const Elt x3 = sub(mul(t3, t1m), mul(t4, y3t));
-  const Elt y3 = add(mul(y3t, three_t0), mul(t1m, z3t));
-  const Elt z3 = add(mul(z3t, t4), mul(three_t0, t3));
-
-  uint32_t* o = out + (size_t)i * 3 * N;
-  store(o, x3);
-  store(o + N, y3);
-  store(o + 2 * N, z3);
+  __shared__ uint4 tp[T * kVecs];
+  __shared__ uint4 tq[T * kVecs];
+  const size_t first = (size_t)blockIdx.x * T;
+  const uint32_t m = min((uint32_t)T, n - (uint32_t)first);
+  p += first * kVecs;
+  q += first * kVecs;
+  for (uint32_t k = threadIdx.x; k < m * kVecs; k += T) {
+    tp[k] = __ldg(p + k);
+    tq[k] = __ldg(q + k);
+  }
+  __syncthreads();
+  if (threadIdx.x < m) {
+    uint4* const a = tp + threadIdx.x * kVecs;
+    uint4* const b = tq + threadIdx.x * kVecs;
+    uint4 *const ax = a, *const ay = a + 3, *const az = a + 6;
+    uint4 *const bx = b, *const by = b + 3, *const bz = b + 6;
+    const Elt t0 = mul(lds(ax), lds(bx));
+    const Elt r3 = mul(add(lds(ax), lds(ay)), add(lds(bx), lds(by)));  // t3 + t0 + t1
+    const Elt r5 = mul(add(lds(ax), lds(az)), add(lds(bx), lds(bz)));  // t5 + t0 + t2
+    sts(ax, r3);
+    sts(bx, r5);
+    const Elt t1 = mul(lds(ay), lds(by));
+    const Elt t2 = mul(lds(az), lds(bz));
+    sts(by, sub(mul(add(lds(ay), lds(az)), add(lds(by), lds(bz))), add(t1, t2)));  // t4
+    sts(ax, sub(lds(ax), add(t0, t1)));                                             // t3
+    const Elt t5 = sub(lds(bx), add(t0, t2));
+    sts(bx, add(add(t0, t0), t0));                                                  // 3 t0
+    const Elt bt2 = times_b3(t2);
+    const Elt z3t = add(t1, bt2);
+    const Elt t1m = sub(t1, bt2);
+    const Elt y3t = times_b3(t5);
+    sts(bz, mul(lds(ax), t1m));
+    sts(bz, sub(lds(bz), mul(lds(by), y3t)));                        // X3
+    sts(ay, add(mul(y3t, lds(bx)), mul(t1m, z3t)));                 // Y3
+    sts(az, add(mul(z3t, lds(by)), mul(lds(bx), lds(ax))));         // Z3
+    sts(ax, lds(bz));
+  }
+  __syncthreads();
+  out += first * kVecs;
+  for (uint32_t k = threadIdx.x; k < m * kVecs; k += T) out[k] = tp[k];
 }
 
-__global__ void __launch_bounds__(kThreads) proj_double_kernel(
-    const uint32_t* __restrict__ p, uint32_t* __restrict__ out, uint32_t n) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* pp = p + (size_t)i * 3 * N;
-  const Elt x = load(pp), y = load(pp + N), z = load(pp + 2 * N);
-
-  Elt t0 = mul(y, y);
-  const Elt t00 = add(t0, t0);
-  const Elt t0000 = add(t00, t00);
-  Elt z3 = add(t0000, t0000);  // 8 Y^2
-  Elt t1 = mul(y, z);
-  Elt t2 = mul(b3(), mul(z, z));
-  Elt x3 = mul(t2, z3);
-  Elt y3 = add(t0, t2);
-  z3 = mul(t1, z3);
-  t1 = add(t2, t2);
-  t2 = add(t1, t2);
-  t0 = sub(t0, t2);
-  y3 = add(x3, mul(t0, y3));
-  x3 = mul(t0, mul(x, y));
-  x3 = add(x3, x3);
-
-  uint32_t* o = out + (size_t)i * 3 * N;
-  store(o, x3);
-  store(o + N, y3);
-  store(o + 2 * N, z3);
+__device__ __forceinline__ Elt sel(bool c, const Elt& a, const Elt& b) {
+  Elt r;
+#pragma unroll
+  for (int j = 0; j < N; j++) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
 }
 
-inline unsigned blocks(uint32_t n) { return (n + kThreads - 1) / kThreads; }
+// Element v of lane `src` of this thread's group of four lanes.
+__device__ __forceinline__ Elt from_lane(const Elt& v, int src) {
+  Elt r;
+#pragma unroll
+  for (int j = 0; j < N; j++) r.w[j] = __shfl_sync(0xffffffffu, v.w[j], src, 4);
+  return r;
+}
+
+// One doubling by a group of four lanes, each holding the whole point (RCB
+// algorithm 9; the same values as curve.py's order).  The formula's nine
+// products fall into two levels of dependence, Y^2, YZ, Z^2, XY and then
+// four more, with b3 Z^2 (adds) between them.  Lane `role` takes one product
+// of each level, every lane does the adds, and shuffles exchange the
+// products, so a step waits for two products instead of eight.
+__device__ __forceinline__ void dbl4(Elt& x, Elt& y, Elt& z, uint32_t role) {
+  const Elt u = mul(sel(role == 2, z, sel(role == 3, x, y)), sel(role == 0 || role == 3, y, z));
+  const Elt t0 = from_lane(u, 0);              // Y^2
+  const Elt t2 = times_b3(from_lane(u, 2));    // b3 Z^2
+  Elt z3 = add(t0, t0);
+  z3 = add(z3, z3);
+  z3 = add(z3, z3);                            // 8 Y^2
+  const Elt y3 = add(t0, t2);
+  const Elt t0m = sub(t0, add(add(t2, t2), t2));  // Y^2 - 3 b3 Z^2
+  // Lane 0: b3 Z^2 * 8 Y^2, lane 1: YZ * 8 Y^2 (= Z3), lane 2: t0m * y3,
+  // lane 3: t0m * XY.
+  const Elt v = mul(sel(role == 0, t2, sel(role == 1, u, t0m)), sel(role <= 1, z3, sel(role == 2, y3, u)));
+  const Elt w = from_lane(v, 3);
+  x = add(w, w);
+  y = add(from_lane(v, 0), from_lane(v, 2));
+  z = from_lane(v, 1);
+}
+
+// K4 as a chain: out[k] = 2^(k+1) P, each step [n, 3, 12] after the last,
+// four lanes per point.  The point stays in registers between steps; each
+// lane stores every fourth 16-byte vector of it.  steps = 1 is K4 alone.
+// A group past the last point doubles a copy of it (the shuffles need every
+// lane of the warp) and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(T) proj_double_chain_kernel(
+    const uint4* __restrict__ p, uint4* __restrict__ out, uint32_t n, uint32_t steps) {
+  const uint32_t i = (blockIdx.x * T + threadIdx.x) >> 2;
+  const uint32_t role = threadIdx.x & 3;
+  const bool live = i < n;
+  p += (size_t)(live ? i : n - 1) * kVecs;
+  Elt x = ldg(p), y = ldg(p + 3), z = ldg(p + 6);
+  uint4* o = out + (size_t)i * kVecs;
+  for (uint32_t k = 0; k < steps; k++, o += (size_t)n * kVecs) {
+    dbl4(x, y, z, role);
+    if (!live) continue;
+#pragma unroll
+    for (int v = 0; v < kVecs; v++) {
+      if ((v & 3) != (int)role) continue;
+      const Elt& e = v < 3 ? x : (v < 6 ? y : z);
+      const int w = 4 * (v % 3);
+      o[v] = make_uint4(e.w[w], e.w[w + 1], e.w[w + 2], e.w[w + 3]);
+    }
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The widest block (128, 64 or 32 threads) that still gives every SM a
+// block; 32 when even that leaves SMs idle.
+int block_threads(long long n) {
+  const long long sms = sm_count();
+  for (int t = 128; t > 32; t /= 2)
+    if ((n + t - 1) / t >= sms) return t;
+  return 32;
+}
+
+bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
+
+template <int T>
+void launch_add(const void* p, const void* q, void* out, long long n, cudaStream_t s) {
+  proj_add_kernel<T><<<(unsigned)((n + T - 1) / T), T, 0, s>>>(
+      (const uint4*)p, (const uint4*)q, (uint4*)out, (uint32_t)n);
+}
+
+template <int T>
+void launch_chain(const void* p, void* out, long long n, long long steps, cudaStream_t s) {
+  proj_double_chain_kernel<T><<<(unsigned)((4 * n + T - 1) / T), T, 0, s>>>(
+      (const uint4*)p, (uint4*)out, (uint32_t)n, (uint32_t)steps);
+}
 
 }  // namespace
 
 extern "C" int kzg_proj_add(const void* p, const void* q, void* out, long long n,
                             void* stream) {  // K3
-  proj_add_kernel<<<blocks((uint32_t)n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, (uint32_t)n);
+  if (!aligned(p) || !aligned(q) || !aligned(out)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (block_threads(n)) {
+    case 128: launch_add<128>(p, q, out, n, s); break;
+    case 64: launch_add<64>(p, q, out, n, s); break;
+    default: launch_add<32>(p, q, out, n, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_proj_double_chain(const void* p, void* out, long long n, long long steps,
+                                     void* stream) {  // K4, steps doublings in one launch
+  if (!aligned(p) || !aligned(out)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (block_threads(4 * n)) {
+    case 128: launch_chain<128>(p, out, n, steps, s); break;
+    case 64: launch_chain<64>(p, out, n, steps, s); break;
+    default: launch_chain<32>(p, out, n, steps, s); break;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int kzg_proj_double(const void* p, void* out, long long n, void* stream) {  // K4
-  proj_double_kernel<<<blocks((uint32_t)n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (uint32_t*)out, (uint32_t)n);
-  return (int)cudaGetLastError();
+  return kzg_proj_double_chain(p, out, n, 1, stream);
 }

@@ -26,10 +26,6 @@ static __constant__ uint32_t FP_MOD[12] = {
 static __constant__ uint32_t FR_MOD[8] = {
     0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
-// 3 * b = 12 for y^2 = x^3 + 4, in Montgomery form (12 * 2^384 mod p).
-static __constant__ uint32_t FP_B3_MONT[12] = {
-    0x0027552eu, 0x44760000u, 0x43480020u, 0xdcb8009au, 0x4a6e8b59u, 0x6f7ee9ceu,
-    0xc0a95bc6u, 0xb10330b7u, 0xfb1e54b7u, 0x6140b1fcu, 0x7f0bb4e1u, 0x0381be09u};
 
 struct Fp {
   static constexpr int N = 12;
@@ -127,6 +123,218 @@ __device__ __forceinline__ void sub_mod(uint32_t* r, const uint32_t* a, const ui
     r[j] = (uint32_t)c;
     c >>= 32;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The Fp core of the curve kernels (curve_kernels.cu): the same functions on
+// Hopper's 32-bit carry chains (add.cc / addc.cc / sub.cc in PTX) and its
+// 32 x 32 -> 64-bit multiply (mul.wide.u32, one IMAD.WIDE.U32).  Each carry
+// chain is one asm block, so nothing the compiler schedules can land between
+// two links of a chain and clobber the carry flag.  mont_mul above stays as
+// it is for K1 and K2.
+//
+// Instructions per Fp product in the SASS of sm_90a (cuobjdump -sass of
+// chip_smoke.py's probe kernels; H100 run in PERF.md): mont_mul<Fp> above
+// 1,113, fp_mont_mul below 902.  A row a * b[i] is 12 IMAD.WIDE.U32 and two
+// 12-link IADD3.X chains (low and high words), with no 64-bit adds; the
+// first version, mad.lo.cc / madc.hi.cc chains, took 1,202, because ptxas
+// splits each such link into an IMAD or IMAD.HI and an IADD3.X.
+// ---------------------------------------------------------------------------
+
+// Word j of p as an immediate, so the rows take the modulus without
+// registers (FP_MOD above stays in constant memory for K1 and K2).
+__device__ __forceinline__ constexpr uint32_t fp_mod_word(int j) {
+  constexpr uint32_t w[12] = {
+      0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+      0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+  return w[j];
+}
+
+// t[0..12] += a * b: twelve 32 x 32 -> 64-bit products (IMAD.WIDE.U32),
+// their low words along one carry chain into t[0..11] (the carry out into
+// t[12]) and their high words along another into t[1..12].  The caller's
+// bound (the running sum stays below 2^416) leaves no carry out of t[12].
+__device__ __forceinline__ void fp_mad_row(uint32_t* t, const uint32_t* a, uint32_t b) {
+  asm volatile(
+      "{\n\t"
+      ".reg .u64 w<12>;\n\t"
+      ".reg .u32 l<12>, h<12>;\n\t"
+      "mul.wide.u32 w0, %13, %25;\n\t"
+      "mul.wide.u32 w1, %14, %25;\n\t"
+      "mul.wide.u32 w2, %15, %25;\n\t"
+      "mul.wide.u32 w3, %16, %25;\n\t"
+      "mul.wide.u32 w4, %17, %25;\n\t"
+      "mul.wide.u32 w5, %18, %25;\n\t"
+      "mul.wide.u32 w6, %19, %25;\n\t"
+      "mul.wide.u32 w7, %20, %25;\n\t"
+      "mul.wide.u32 w8, %21, %25;\n\t"
+      "mul.wide.u32 w9, %22, %25;\n\t"
+      "mul.wide.u32 w10, %23, %25;\n\t"
+      "mul.wide.u32 w11, %24, %25;\n\t"
+      "mov.b64 {l0, h0}, w0;\n\t"
+      "mov.b64 {l1, h1}, w1;\n\t"
+      "mov.b64 {l2, h2}, w2;\n\t"
+      "mov.b64 {l3, h3}, w3;\n\t"
+      "mov.b64 {l4, h4}, w4;\n\t"
+      "mov.b64 {l5, h5}, w5;\n\t"
+      "mov.b64 {l6, h6}, w6;\n\t"
+      "mov.b64 {l7, h7}, w7;\n\t"
+      "mov.b64 {l8, h8}, w8;\n\t"
+      "mov.b64 {l9, h9}, w9;\n\t"
+      "mov.b64 {l10, h10}, w10;\n\t"
+      "mov.b64 {l11, h11}, w11;\n\t"
+      "add.cc.u32  %0, %0, l0;\n\t"
+      "addc.cc.u32 %1, %1, l1;\n\t"
+      "addc.cc.u32 %2, %2, l2;\n\t"
+      "addc.cc.u32 %3, %3, l3;\n\t"
+      "addc.cc.u32 %4, %4, l4;\n\t"
+      "addc.cc.u32 %5, %5, l5;\n\t"
+      "addc.cc.u32 %6, %6, l6;\n\t"
+      "addc.cc.u32 %7, %7, l7;\n\t"
+      "addc.cc.u32 %8, %8, l8;\n\t"
+      "addc.cc.u32 %9, %9, l9;\n\t"
+      "addc.cc.u32 %10, %10, l10;\n\t"
+      "addc.cc.u32 %11, %11, l11;\n\t"
+      "addc.u32    %12, %12, 0;\n\t"
+      "add.cc.u32  %1, %1, h0;\n\t"
+      "addc.cc.u32 %2, %2, h1;\n\t"
+      "addc.cc.u32 %3, %3, h2;\n\t"
+      "addc.cc.u32 %4, %4, h3;\n\t"
+      "addc.cc.u32 %5, %5, h4;\n\t"
+      "addc.cc.u32 %6, %6, h5;\n\t"
+      "addc.cc.u32 %7, %7, h6;\n\t"
+      "addc.cc.u32 %8, %8, h7;\n\t"
+      "addc.cc.u32 %9, %9, h8;\n\t"
+      "addc.cc.u32 %10, %10, h9;\n\t"
+      "addc.cc.u32 %11, %11, h10;\n\t"
+      "addc.u32    %12, %12, h11;\n\t"
+      "}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(b));
+}
+
+// r = t - p if t >= p, else t.  Needs t < 2p.
+__device__ __forceinline__ void fp_reduce_once(uint32_t* r, const uint32_t* t) {
+  uint32_t d[12], borrow;
+#pragma unroll
+  for (int j = 0; j < 12; j++) d[j] = t[j];
+  asm volatile(
+      "sub.cc.u32  %0, %0, %13;\n\t"
+      "subc.cc.u32 %1, %1, %14;\n\t"
+      "subc.cc.u32 %2, %2, %15;\n\t"
+      "subc.cc.u32 %3, %3, %16;\n\t"
+      "subc.cc.u32 %4, %4, %17;\n\t"
+      "subc.cc.u32 %5, %5, %18;\n\t"
+      "subc.cc.u32 %6, %6, %19;\n\t"
+      "subc.cc.u32 %7, %7, %20;\n\t"
+      "subc.cc.u32 %8, %8, %21;\n\t"
+      "subc.cc.u32 %9, %9, %22;\n\t"
+      "subc.cc.u32 %10, %10, %23;\n\t"
+      "subc.cc.u32 %11, %11, %24;\n\t"
+      "subc.u32    %12, 0, 0;"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "=r"(borrow)
+      : "r"(fp_mod_word(0)), "r"(fp_mod_word(1)), "r"(fp_mod_word(2)), "r"(fp_mod_word(3)),
+        "r"(fp_mod_word(4)), "r"(fp_mod_word(5)), "r"(fp_mod_word(6)), "r"(fp_mod_word(7)),
+        "r"(fp_mod_word(8)), "r"(fp_mod_word(9)), "r"(fp_mod_word(10)), "r"(fp_mod_word(11)));
+#pragma unroll
+  for (int j = 0; j < 12; j++) r[j] = borrow ? t[j] : d[j];
+}
+
+// a * b * 2^-384 mod p, CIOS as mont_mul above: per word b[i], the row
+// a * b[i] and the row m * p, then a one-word shift (a renaming, no
+// instructions).  With t < 2p on entry to a
+// row, t + a b[i] + m p < 2p + 2^33 p < 2^416 fits t[0..12], and the shifted
+// t stays < 2p, so one conditional subtract ends it.
+__device__ __forceinline__ void fp_mont_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[13], p[12];
+#pragma unroll
+  for (int j = 0; j < 13; j++) t[j] = 0;
+#pragma unroll
+  for (int j = 0; j < 12; j++) p[j] = fp_mod_word(j);
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    fp_mad_row(t, a, b[i]);
+    const uint32_t m = t[0] * Fp::INV;
+    fp_mad_row(t, p, m);
+#pragma unroll
+    for (int j = 0; j < 12; j++) t[j] = t[j + 1];
+    t[12] = 0;
+  }
+  fp_reduce_once(r, t);
+}
+
+// a + b mod p for a, b < p: the sum is below 2^383, so no carry leaves the chain.
+__device__ __forceinline__ void fp_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t s[12];
+#pragma unroll
+  for (int j = 0; j < 12; j++) s[j] = a[j];
+  asm volatile(
+      "add.cc.u32  %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32    %11, %11, %23;"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]),
+        "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11])
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]),
+        "r"(b[8]), "r"(b[9]), "r"(b[10]), "r"(b[11]));
+  fp_reduce_once(r, s);
+}
+
+// a - b mod p for a, b < p: subtract, then add p back (masked by the borrow);
+// the second chain's carry out is the 2^384 the borrow lent.
+__device__ __forceinline__ void fp_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t borrow;
+#pragma unroll
+  for (int j = 0; j < 12; j++) r[j] = a[j];
+  asm volatile(
+      "sub.cc.u32  %0, %0, %13;\n\t"
+      "subc.cc.u32 %1, %1, %14;\n\t"
+      "subc.cc.u32 %2, %2, %15;\n\t"
+      "subc.cc.u32 %3, %3, %16;\n\t"
+      "subc.cc.u32 %4, %4, %17;\n\t"
+      "subc.cc.u32 %5, %5, %18;\n\t"
+      "subc.cc.u32 %6, %6, %19;\n\t"
+      "subc.cc.u32 %7, %7, %20;\n\t"
+      "subc.cc.u32 %8, %8, %21;\n\t"
+      "subc.cc.u32 %9, %9, %22;\n\t"
+      "subc.cc.u32 %10, %10, %23;\n\t"
+      "subc.cc.u32 %11, %11, %24;\n\t"
+      "subc.u32    %12, 0, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7]), "+r"(r[8]), "+r"(r[9]), "+r"(r[10]), "+r"(r[11]), "=r"(borrow)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]),
+        "r"(b[8]), "r"(b[9]), "r"(b[10]), "r"(b[11]));
+  asm volatile(
+      "add.cc.u32  %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32    %11, %11, %23;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7]), "+r"(r[8]), "+r"(r[9]), "+r"(r[10]), "+r"(r[11])
+      : "r"(fp_mod_word(0) & borrow), "r"(fp_mod_word(1) & borrow), "r"(fp_mod_word(2) & borrow),
+        "r"(fp_mod_word(3) & borrow), "r"(fp_mod_word(4) & borrow), "r"(fp_mod_word(5) & borrow),
+        "r"(fp_mod_word(6) & borrow), "r"(fp_mod_word(7) & borrow), "r"(fp_mod_word(8) & borrow),
+        "r"(fp_mod_word(9) & borrow), "r"(fp_mod_word(10) & borrow),
+        "r"(fp_mod_word(11) & borrow));
 }
 
 template <int N>

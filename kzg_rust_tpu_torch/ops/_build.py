@@ -55,6 +55,7 @@ ENTRY_POINTS = {
     "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _I64, _I64, _I64, _P]),
     "kzg_proj_add": ("curve_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_proj_double": ("curve_kernels.cu", [_P, _P, _I64, _P]),
+    "kzg_proj_double_chain": ("curve_kernels.cu", [_P, _P, _I64, _I64, _P]),
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,

@@ -10,10 +10,12 @@ complete on every input, so a batch needs no masks.
 On CUDA tensors :func:`proj_add` launches K3 (``csrc/curve_kernels.cu``
 ``kzg_proj_add``, replacing the JAX package's ``pallas_kernels.py:348``
 ``proj_add_pallas``) and :func:`proj_double` K4 (``kzg_proj_double``,
-replacing ``:354`` ``proj_double_pallas``), or raise; on CPU tensors they
-run the plain versions below, which follow the same operation order over
-the plain field functions.  Both give the same canonical coordinates as the
-JAX package's ``curve.proj_add`` / ``proj_double``.
+replacing ``:354`` ``proj_double_pallas``); :func:`proj_double_chain` runs
+K4 ``steps`` times in one launch (``kzg_proj_double_chain``), or they
+raise; on CPU tensors they run the plain versions below, which follow the
+same operation order over the plain field functions.  All give the same
+canonical coordinates as the JAX package's ``curve.proj_add`` /
+``proj_double``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from . import _build
 from . import limbs as L
 from .limbs import FP
 
-# Launch counts of K3 (``kzg_proj_add``) and K4 (``kzg_proj_double``): plain
-# ints that _build.launch adds one to at each launch (shared with limbs.py).
+# Launch counts of K3 (``kzg_proj_add``) and K4 (``kzg_proj_double``,
+# ``kzg_proj_double_chain``): plain ints that _build.launch adds one to at
+# each launch (shared with limbs.py).
 LAUNCHES = _build.LAUNCHES
 
 # b3 = 3 * b = 12 for y^2 = x^3 + 4, and the GLV constant beta (a primitive
@@ -134,6 +137,16 @@ def proj_double_plain(p):
     return torch.stack([x3, y3, z3], dim=-2)
 
 
+def proj_double_chain_plain(p, steps: int):
+    """Plain version of the K4 chain: ``[steps, *p.shape]`` with
+    ``out[k] = 2^(k+1) P``, iterated :func:`proj_double_plain`."""
+    out = []
+    for _ in range(steps):
+        p = proj_double_plain(p)
+        out.append(p)
+    return torch.stack(out)
+
+
 def _check_points(*ps):
     for p in ps:
         if p.dtype != torch.int32 or p.shape[-2:] != (3, FP.nwords):
@@ -142,10 +155,12 @@ def _check_points(*ps):
             raise ValueError("point operands differ in shape or device")
 
 
-def _out(p, out):
+def _out(p, out, shape=None):
+    shape = p.shape if shape is None else shape
     if out is None:
-        return torch.empty_like(p, memory_format=torch.contiguous_format)
-    _check_points(p, out)
+        return torch.empty(shape, dtype=p.dtype, device=p.device)
+    if out.shape != shape or out.dtype != p.dtype or out.device != p.device:
+        raise ValueError(f"out must be {p.dtype} {tuple(shape)} on {p.device}, got {out.dtype} {tuple(out.shape)}")
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
     return out
@@ -175,6 +190,21 @@ def proj_double(p, out=None):
     n = p.numel() // (3 * FP.nwords)
     if n:
         _build.launch("kzg_proj_double", p.device, p.contiguous(), out, n)
+    return out
+
+
+def proj_double_chain(p, steps: int, out=None):
+    """``steps`` doublings in one launch: ``[steps, *p.shape]`` with
+    ``out[k] = 2^(k+1) P``, written into ``out`` when given."""
+    _check_points(p)
+    shape = (steps,) + tuple(p.shape)
+    if p.device.type == "cpu":
+        r = proj_double_chain_plain(p, steps)
+        return r if out is None else out.copy_(r)
+    out = _out(p, out, shape)
+    n = p.numel() // (3 * FP.nwords)
+    if n and steps:
+        _build.launch("kzg_proj_double_chain", p.device, p.contiguous(), out, n, steps)
     return out
 
 

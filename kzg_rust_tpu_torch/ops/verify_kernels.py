@@ -5,7 +5,8 @@ of kernel launches on one stream (CUDA launches are asynchronous, so the
 host's Fiat-Shamir hashing overlaps stage 1):
 
 * stage 1, :func:`batch_points`: G1 decompression (an Fp square root), the
-  66-step window-base doubling chain and the GLV subgroup check;
+  66-step window-base doubling chain (one K4 chain launch) and the GLV
+  subgroup check;
 * :func:`bary_batch_from_bytes`: blob ingest, canonicality and the batched
   barycentric evaluation;
 * stage 2, :func:`batch_stage2`: the RLC combination as one wide select
@@ -85,16 +86,13 @@ def g1_uncompress_points(comp: torch.Tensor):
 
 def bases_chain(points: torch.Tensor):
     """[N, 3, 12] -> (bases [W, N, 3, 12], bases2 [W, N, 3, 12]) with
-    bases[j] = 4^j P and bases2[j] = 2 * 4^j P: 2W - 1 K4 launches, each
-    writing its slice of the output in place."""
-    bases = torch.empty((NUM_WINDOWS,) + points.shape, dtype=torch.int32, device=points.device)
-    bases2 = torch.empty_like(bases)
-    bases[0] = points
-    for j in range(NUM_WINDOWS):
-        C.proj_double(bases[j], out=bases2[j])
-        if j + 1 < NUM_WINDOWS:
-            C.proj_double(bases2[j], out=bases[j + 1])
-    return bases, bases2
+    bases[j] = 4^j P and bases2[j] = 2 * 4^j P: the 2W - 1 doublings as one
+    K4 chain launch into ``chain`` [2W, N, 3, 12] (chain[k] = 2^k P), whose
+    even and odd rows are the two tables (views; each row contiguous)."""
+    chain = torch.empty((2 * NUM_WINDOWS,) + points.shape, dtype=torch.int32, device=points.device)
+    chain[0] = points
+    C.proj_double_chain(chain[0], 2 * NUM_WINDOWS - 1, out=chain[1:])
+    return chain[0::2], chain[1::2]
 
 
 def subgroup_check_from_bases(points, bases, bases2):

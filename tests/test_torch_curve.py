@@ -9,6 +9,10 @@ comparison is exact projective equality of the raw words.
 
 from __future__ import annotations
 
+import ctypes
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,7 @@ from kzg_rust_tpu.ops import pallas_kernels as PK
 from kzg_rust_tpu.ops import verify_kernels as JV
 from kzg_rust_tpu_torch.golden import curve as gc
 from kzg_rust_tpu_torch.golden.field import P
+from kzg_rust_tpu_torch.ops import _build
 from kzg_rust_tpu_torch.ops import curve as C
 from kzg_rust_tpu_torch.ops import jax_state as JS
 from kzg_rust_tpu_torch.ops import limbs as L
@@ -93,6 +98,54 @@ def test_proj_double_matches_xla_and_pallas():
     out = torch.empty_like(pp)
     assert C.proj_double(pp, out=out) is out and torch.equal(out, got)
     assert C.proj_to_points(got) == [gc.g1_double(p) for p in ps]
+
+
+def test_proj_double_chain_matches_jax():
+    """The K4 chain (its plain version here) against the JAX package's
+    proj_double iterated, word for word, infinity rows included."""
+    ps, _ = _lanes()
+    jp, pp = _both(_scaled(ps, 5))
+    got = C.proj_double_chain(pp, 5)
+    assert got.shape == (5, 8, 3, 12)
+    acc = jp
+    for k in range(5):
+        acc = JC.proj_double(acc)
+        assert torch.equal(got[k], JS.points_from_jax(np.asarray(acc)))
+    assert torch.equal(C.proj_double_chain(pp, 1)[0], C.proj_double(pp))
+    out = torch.empty_like(got)
+    assert C.proj_double_chain(pp, 5, out=out) is out and torch.equal(out, got)
+    assert C.proj_to_points(got[4]) == [gc.g1_mul_unsafe(p, 32) if p else None for p in ps]
+
+
+def _c_params(params: str) -> list:
+    """C parameter list -> ctypes argtypes: a pointer, long long or int each."""
+    kinds = []
+    for param in (p.strip() for p in params.split(",")):
+        if "*" in param:
+            kinds.append(ctypes.c_void_p)
+        elif param.startswith("long long "):
+            kinds.append(ctypes.c_longlong)
+        else:
+            assert param.startswith("int "), param
+            kinds.append(ctypes.c_int)
+    return kinds
+
+
+def test_entry_points_match_csrc():
+    """Every extern "C" function of csrc/*.cu (macro-made ones included) is
+    in _build.ENTRY_POINTS with its source and one argtype per parameter;
+    a wrong argtype would cut a pointer to 32 bits without an error."""
+    found = {}
+    for path in sorted(pathlib.Path(_build.CSRC).glob("*.cu")):
+        text = path.read_text().replace("\\\n", " ")
+        for m in re.finditer(r'extern "C" int (kzg_\w+)\(([^)]*)\)', text):
+            found[m.group(1)] = (path.name, _c_params(m.group(2)))
+        macros = re.finditer(r'#define (\w+)\(name,[^)]*\)\s+extern "C" int name\(([^)]*)\)', text)
+        for m in macros:
+            for call in re.finditer(r"^" + m.group(1) + r"\((kzg_\w+),", text, re.M):
+                found[call.group(1)] = (path.name, _c_params(m.group(2)))
+    assert "kzg_proj_double_chain" in found and "kzg_fp_mont_mul" in found
+    assert found == {name: (src, list(types)) for name, (src, types) in _build.ENTRY_POINTS.items()}
 
 
 def test_point_codecs_and_neg_match_jax():

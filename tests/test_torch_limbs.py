@@ -56,7 +56,7 @@ def _operands(modulus: int, n: int = 16):
 
 
 def test_header_constants_match_the_golden_field():
-    """csrc/field.cuh's moduli, Montgomery constants and b3 are the golden
+    """csrc/field.cuh's moduli and Montgomery constants are the golden
     field's (the CUDA source cannot be compiled here)."""
     text = (REPO_ROOT / "kzg_rust_tpu_torch" / "csrc" / "field.cuh").read_text()
 
@@ -68,7 +68,6 @@ def test_header_constants_match_the_golden_field():
         return int(re.search(r"struct " + name + r" \{.*?INV = (0x[0-9a-f]+)u", text, re.S).group(1), 16)
 
     assert words("FP_MOD") == P and words("FR_MOD") == R
-    assert words("FP_B3_MONT") == 12 * L.FP.mont_r % P
     for name, mod in (("Fp", P), ("Fr", R)):
         assert inv(name) * mod % (1 << 32) == (1 << 32) - 1  # -mod^-1 mod 2^32
 
