@@ -7,12 +7,14 @@ Phases, any failure of which exits non-zero without the final line:
 
 1. build the CUDA kernels from kzg_rust_tpu_torch/csrc/ (nvcc, sm_90a) and
    print the build seconds, what ptxas reported, the SASS instructions of
-   one Fp product of each core (where the toolkit has cuobjdump), and the
-   card's name and power limit;
+   the Fp and Fr Montgomery product and squaring (where the toolkit has
+   cuobjdump), and the card's name and power limit;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, exactly, edge lanes included, and time
-   both with CUDA events; the K4 chain also against as many one-step K4
-   launches;
+   both with CUDA events (a kernel bound by bytes on operands the L2 cache
+   does not hold); the K4 chain also against as many one-step K4
+   launches, and the constant-exponent chains of K1 and K2 against the
+   same chains as launch sequences of K1 or K2, which are timed too;
 3. drive the main path, ``Kzg.verify_blob_kzg_proof_batch`` through
    ``TorchBackend()`` on the mainnet setup: the 22 mainnet batch vectors,
    then batches of n = 64 and n = 4096 sampled (numpy seed) from the six
@@ -20,9 +22,10 @@ Phases, any failure of which exits non-zero without the final line:
    (valid, swapped proof, non-canonical blob, malformed point, non-subgroup
    point; the n = 64 lanes cross-checked against the golden backend), the
    launch counts of one valid batch, stage times and peak memory;
-4. check that every kernel of the path launched in the n = 64 batch and
-   that the window-base chain was one launch at both n, and print the
-   report lines and the ``kernels`` JSON line.
+4. check that every kernel of the path launched in the n = 64 batch, and
+   that at both n the window-base chain and the square root were one launch
+   each and the Fermat inversion and x^4096 one each of the Fr chain, and
+   print the report lines and the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -52,13 +55,24 @@ BATCH_SIZES = (64, 4096)  # a block's batch, and bulk sync; the first is cross-c
 OFF_PATH = {"kzg_fr_add", "kzg_proj_double"}
 # Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64:
 # K1 at stage 1's width (2 * 4096 points); K2 and the Fr launchers at a
-# product-tree level of the barycentric evaluation (4096 blobs x 64); the
-# domain sum at n = 64 (4096 rows of 64 blobs); K3 at the subgroup check's
-# first tree level (8 of its 17 window rows x 8192 points) and at stage 2's
-# widest, the right-hand tree's first level (66 windows x 4096 blobs x 4
-# lanes, halved); K4 and its chain at the window-base chain's widths
-# (n = 4096 and n = 64).
-SHAPES = {"fp": 8192, "fr": 262144, "sum": (4096, 64), "add": (65536, 540672), "double": (8192, 128)}
+# product-tree level of the barycentric evaluation (4096 blobs x 64), and K2
+# at its widest, the barycentric terms (4096 x 4096); the square-root chain
+# at stage 1's widths (2 * 4096 and 2 * 64 points), the Fermat and x^4096
+# chains over the padded blobs (4096 and 64); the domain sum at n = 64 (4096
+# rows of 64 blobs); K3 at the subgroup check's first tree level (8 of its
+# 17 window rows x 8192 points) and at stage 2's widest, the right-hand
+# tree's first level (66 windows x 4096 blobs x 4 lanes, halved); K4 and its
+# chain at the window-base chain's widths (n = 4096 and n = 64).
+SHAPES = {
+    "fp": 8192,
+    "fr": 262144,
+    "fr_wide": 4096 * 4096,
+    "fp_pow": (8192, 128),
+    "fr_pow": (4096, 64),
+    "sum": (4096, 64),
+    "add": (65536, 540672),
+    "double": (8192, 128),
+}
 
 # Published H100 SXM peaks (NVIDIA data sheet) and the integer pipe rate
 # (CUDA C++ Programming Guide, arithmetic throughput table, compute
@@ -71,22 +85,27 @@ IMAD_PER_CLOCK_PER_SM = 64
 ADD_PRODUCTS, DOUBLE_PRODUCTS = 12, 8
 
 
-# Three kernels that differ only in what they do between loading two Fp
-# elements and storing one: nothing (an xor), K1's product, K3/K4's product.
+# Probe kernels that differ only in what they do between loading two
+# elements and storing one: nothing (an xor), a product, or a squaring of
+# one operand xored with the other, for each field.
 SASS_PROBE = r"""
 #include "field.cuh"
 using namespace kzg;
-#define PROBE(name, body)                                                               \
+#define PROBE(name, N, body)                                                            \
   extern "C" __global__ void name(const uint32_t* a, const uint32_t* b, uint32_t* r) { \
-    uint32_t x[12], y[12], z[12];                                                      \
-    load_words<12>(x, a + 12 * threadIdx.x);                                           \
-    load_words<12>(y, b + 12 * threadIdx.x);                                           \
+    uint32_t x[N], y[N], z[N];                                                         \
+    load_words<N>(x, a + N * threadIdx.x);                                             \
+    load_words<N>(y, b + N * threadIdx.x);                                             \
     body;                                                                              \
-    store_words<12>(r + 12 * threadIdx.x, z);                                          \
+    store_words<N>(r + N * threadIdx.x, z);                                            \
   }
-PROBE(probe_load_store, for (int j = 0; j < 12; j++) z[j] = x[j] ^ y[j])
-PROBE(probe_mont_mul, mont_mul<Fp>(z, x, y))
-PROBE(probe_fp_mont_mul, fp_mont_mul(z, x, y))
+#define XOR(N) for (int j = 0; j < N; j++) z[j] ^= y[j]
+PROBE(probe_fp_load_store, 12, for (int j = 0; j < 12; j++) z[j] = x[j] ^ y[j])
+PROBE(probe_fp_mont_mul, 12, fp_mont_mul(z, x, y))
+PROBE(probe_fp_mont_sqr, 12, fp_mont_sqr(z, x); XOR(12))
+PROBE(probe_fr_load_store, 8, for (int j = 0; j < 8; j++) z[j] = x[j] ^ y[j])
+PROBE(probe_fr_mont_mul, 8, fr_mont_mul(z, x, y))
+PROBE(probe_fr_mont_sqr, 8, fr_mont_sqr(z, x); XOR(8))
 """
 
 
@@ -152,6 +171,22 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, 3) / reps
 
 
+def cold_graph_ms(fn, args, nbytes: int, l2: int, reps: int) -> float:
+    """graph_ms of ``fn(*args)`` with the L2 cache (``l2`` bytes) cold: the
+    captured calls cycle through copies of ``args`` spanning twice the L2,
+    and every call's output stays alive, so no call finds its operands or
+    output in the L2 (a call moves ``nbytes``)."""
+    copies = [args] + [tuple(x.clone() for x in args) for _ in range(-(-2 * l2 // nbytes) - 1)]
+    outputs = []
+
+    def call():
+        outputs.append(fn(*copies[len(outputs) % len(copies)]))
+
+    ms = graph_ms(call, max(reps, len(copies)))
+    del outputs[:], copies[1:]
+    return ms
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median milliseconds of one call of ``fn`` over ``reps`` calls, each
     timed with CUDA events, after one warm-up call."""
@@ -200,7 +235,7 @@ def random_points(rng, n: int, device):
     return L.to_device(L.FP, vals, device).reshape(n, 3, L.FP.nwords), base
 
 
-def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
+def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], list[dict]]:
     import numpy as np
     import torch
 
@@ -211,15 +246,17 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
 
     rng = np.random.default_rng(SEED)
     imad_s = sms * IMAD_PER_CLOCK_PER_SM * sm_clock_hz
-    rows = []
+    l2_bytes = torch.cuda.get_device_properties(device).L2_cache_size
+    rows, every = [], []
 
     def bound(nbytes: float, int_ops: float):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, int_ops / imad_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps, keep=True):
+    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps, keep=True, plain_reps=2):
         """Hold ``kernel`` against ``plain`` on ``args``, time both and return
-        the row, kept in ``rows`` unless ``keep`` is false."""
+        the row, kept in ``rows`` unless ``keep`` is false (``every`` keeps
+        them all)."""
         got = kernel(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -229,9 +266,14 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"{name}: kernel disagrees with its plain version (max |diff| {err})")
         call_ms = cuda_ms(lambda: kernel(*args), reps)
-        ms = graph_ms(lambda: kernel(*args), reps)
-        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        warm_ms = graph_ms(lambda: kernel(*args), reps)
+        plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
         bms, by = bound(nbytes, int_ops)
+        # A bytes-bound row is held to the HBM rate, so it is timed on
+        # operands the L2 does not hold; replays of one call on the same
+        # operands would find them there when they fit twice over.
+        cold = by == "bytes" and nbytes < 2 * l2_bytes
+        ms = cold_graph_ms(kernel, args, nbytes, l2_bytes, reps) if cold else warm_ms
         row = {
             "name": name,
             "route": "cuda",
@@ -246,22 +288,30 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
             "library_ms": None,
             "shape": [int(s) for s in args[0].shape],
             "call_ms": call_ms,
+            "l2": "cold" if cold else "as replayed",
         }
+        if cold:
+            row["ms_l2_warm"] = warm_ms
         log(
             f"kernel {name}: equal to plain at {list(args[0].shape)}; {ms:.4f} ms on the card "
-            f"(CUDA graph replay; {call_ms:.4f} ms per call with the host), plain {plain_ms:.2f} ms, "
-            f"bound {bms:.4f} ms by {by}"
+            f"(CUDA graph replay, L2 {row['l2']}{f'; {warm_ms:.4f} ms with the operands in L2' if cold else ''}; "
+            f"{call_ms:.4f} ms per call with the host), plain {plain_ms:.2f} ms, bound {bms:.4f} ms by {by}"
         )
         if keep:
             rows.append(row)
+        every.append(row)
         return row
 
     def mont_products(nw):  # 32-bit multiply-adds of one CIOS product: 2 per word product
         return 2 * (2 * nw * nw + nw)
 
+    def mont_squarings(nw):  # of one SOS squaring: cross products and squares, then the reduction
+        return 2 * (nw * (nw + 1) // 2 + nw * nw + nw)
+
     fsrc = "kzg_rust_tpu_torch/csrc/field_kernels.cu"
     csrc = "kzg_rust_tpu_torch/csrc/curve_kernels.cu"
     pk = "kzg_rust_tpu/ops/pallas_kernels.py"
+    tpu_line = {"fp": 248, "fr": 252}
 
     def field_operands(spec, n):
         a = random_field(rng, spec.modulus, n)
@@ -270,20 +320,26 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         b[:2] = [0, spec.modulus - 1]
         return L.to_device(spec, a, device), L.to_device(spec, b, device)
 
-    for spec, n, kname, line in ((L.FP, SHAPES["fp"], "K1", 248), (L.FR, SHAPES["fr"], "K2", 252)):
-        a, b = field_operands(spec, n)
-        nw = spec.nwords
-        record(
-            f"{kname} kzg_{spec.name}_mont_mul",
+    def product_row(spec, a, b, plain=None, reps=50):
+        n, nw = a.shape[0], spec.nwords
+        return record(
+            f"{'K1' if spec is L.FP else 'K2'} kzg_{spec.name}_mont_mul",
             lambda x, y, s=spec: L.mont_mul(s, x, y),
-            lambda x, y, s=spec: L.mont_mul_plain(s, x, y),
+            plain or (lambda x, y, s=spec: L.mont_mul_plain(s, x, y)),
             (a, b),
             fsrc,
-            f"{pk}:{line}",
+            f"{pk}:{tpu_line[spec.name]}",
             3 * n * nw * 4,
             n * mont_products(nw),
-            50,
+            reps,
+            keep=False,
         )
+
+    products = {}
+    for spec, n in ((L.FP, SHAPES["fp"]), (L.FR, SHAPES["fr"])):
+        a, b = field_operands(spec, n)
+        nw = spec.nwords
+        products[spec.name] = [product_row(spec, a, b)]
         record(
             f"kzg_{spec.name}_add",
             lambda x, y, s=spec: L.add_mod(s, x, y),
@@ -318,6 +374,27 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
             n * nw,
             50,
         )
+    # K2 at the widest launch of the path: the barycentric terms at n = 4096
+    # (4096 x 4096 elements, 537 MB an operand), made on the card; the plain
+    # version runs in slices of 2^20 rows to bound its int64 scratch.
+    n = SHAPES["fr_wide"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    a, b = (torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32, device=device, generator=gen) for _ in range(2))
+    for x in (a, b):
+        x[:, 7] &= 0x3FFFFFFF  # below 2^254 < r
+    edge_a, edge_b = field_operands(L.FR, 3)
+    a[:3], b[:3] = edge_a[:3], edge_b[:3]
+    step = 1 << 20
+    products["fr"].append(
+        product_row(
+            L.FR,
+            a,
+            b,
+            lambda x, y: torch.cat([L.mont_mul_plain(L.FR, x[i : i + step], y[i : i + step]) for i in range(0, n, step)]),
+            reps=20,
+        )
+    )
+    del a, b
     k, inner = SHAPES["sum"]
     terms = L.to_device(L.FR, random_field(rng, R, k * inner), device).reshape(k, inner, 8)
     record(
@@ -331,6 +408,67 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         k * inner * 3 * 8,
         50,
     )
+
+    # The constant-exponent chains of the path, each one launch, at the
+    # widths the path gives them: the square root at n = 4096 and 64 (2 npad
+    # points), the Fermat inversion and x^4096 over npad blobs.  Each is
+    # held against its plain version and against the same chain as a launch
+    # sequence of K1 or K2, which is also timed (CUDA-graph replay and as
+    # called).  Edge rows 0, 1 and N - 1 lead every input.
+    chains = {}
+    pow_chains = (
+        [(L.FP, (P + 1) // 4, "(p+1)/4", n) for n in SHAPES["fp_pow"]]
+        + [(L.FR, R - 2, "r-2", n) for n in SHAPES["fr_pow"]]
+        + [(L.FR, 4096, "4096", SHAPES["fr_pow"][0])]
+    )
+    for spec, exponent, label, n in pow_chains:
+        nw = spec.nwords
+        vals = random_field(rng, spec.modulus, n)
+        vals[:3] = [0, 1, spec.modulus - 1]
+        x = L.to_device(spec, vals, device)
+        digits = L.pow_digits(exponent)
+        table, squarings = max(digits) - 1, 4 * (len(digits) - 1)
+        mults = table + sum(1 for d in digits[1:] if d)
+        kname = "K1" if spec is L.FP else "K2"
+        seq = lambda v, s=spec, e=exponent: L.mont_pow_const_plain(s, v, e, mul=L.mont_mul)  # noqa: E731
+        got = L.mont_pow_const(spec, x, exponent)
+        torch.cuda.synchronize()
+        if not torch.equal(got, seq(x)):
+            raise AssertionError(f"{kname} chain {label} at [{n}]: disagrees with its launch sequence")
+        row = record(
+            f"{kname} kzg_{spec.name}_pow_const",
+            lambda v, s=spec, e=exponent: L.mont_pow_const(s, v, e),
+            lambda v, s=spec, e=exponent: L.mont_pow_const_plain(s, v, e),
+            (x,),
+            fsrc,
+            f"{pk}:{tpu_line[spec.name]}",
+            2 * n * nw * 4,
+            n * (squarings * mont_squarings(nw) + mults * mont_products(nw)),
+            10,
+            keep=False,
+            plain_reps=1,
+        )
+        seq_launches = L.LAUNCHES[spec.kernels["mont_mul"]]
+        seq(x)
+        seq_launches = L.LAUNCHES[spec.kernels["mont_mul"]] - seq_launches
+        all_products = squarings + mults
+        row.update(
+            exponent=label,
+            squarings=squarings,
+            products=mults,
+            all_products_bound_ms=bound(0, n * all_products * mont_products(nw))[0],
+            ns_per_dependent_product=row["ms"] * 1e6 / all_products,
+            sequence_launches=seq_launches,
+            sequence_ms=graph_ms(lambda: seq(x), 2),
+            sequence_call_ms=cuda_ms(lambda: seq(x), 2),
+        )
+        log(
+            f"kernel {kname} chain {label} at [{n}]: equal to its {seq_launches}-launch sequence; {squarings} squarings + "
+            f"{mults} products in one launch: {row['ms']:.4f} ms ({row['ns_per_dependent_product']:.1f} ns a dependent step) "
+            f"against the sequence's {row['sequence_ms']:.4f} ms (CUDA graph) / {row['sequence_call_ms']:.4f} ms (as called); "
+            f"bound {row['bound_ms']:.4f} ms, all-products bound {row['all_products_bound_ms']:.4f} ms"
+        )
+        chains[(spec.name, label, n)] = row
 
     # K3 with the exception lanes up front, at the subgroup check's first
     # tree level and at stage 2's first level at n = 4096 (the path's widest
@@ -420,12 +558,23 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> list[dict]:
         )
         dbl_rows.append(chain)
 
-    # The kernels line: K3 at the widest launch and K4 as the chain, each
-    # with its narrower shape beside it.
+    # The kernels line: K1 and K2 as the chains the path launches, with
+    # their single products beside them; K3 at the widest launch and K4 as
+    # the chain, each with its narrower shape beside it.
+    k1 = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][0])]
+    k1["at_narrow"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][1])]
+    k2 = chains[("fr", "r-2", SHAPES["fr_pow"][0])]
+    k2["at_narrow"] = chains[("fr", "r-2", SHAPES["fr_pow"][1])]
+    k2["x4096"] = chains[("fr", "4096", SHAPES["fr_pow"][0])]
+    for row, spec in ((k1, "fp"), (k2, "fr")):
+        row["product"] = products[spec]
+        row["product_ms"] = products[spec][0]["ms"]
+        row["product_bound_ms"] = products[spec][0]["bound_ms"]
+        row["product_plain_ms"] = products[spec][0]["plain_ms"]
     add_rows[1]["at_narrow"] = add_rows[0]
     dbl_rows[0]["at_narrow"] = dbl_rows[1]
-    rows += [add_rows[1], dbl_rows[0]]
-    return rows
+    rows += [k1, k2, add_rows[1], dbl_rows[0]]
+    return rows, every
 
 
 # ---------------------------------------------------------------------------
@@ -632,13 +781,16 @@ def main() -> int:
                 log(f"build: {src} {kernel}: {line.split(':')[-1].strip()}; {spills}")
     sass = sass_counts()
     if sass is None:
-        log("sass: no cuobjdump in the CUDA toolkit; instructions per Fp product not counted")
+        log("sass: no cuobjdump in the CUDA toolkit; instructions per product and squaring not counted")
     else:
-        base = sass["probe_load_store"]
+        per_call = {
+            f"{f}_mont_{op}": sass[f"probe_{f}_mont_{op}"] - sass[f"probe_{f}_load_store"]
+            for f in ("fp", "fr")
+            for op in ("mul", "sqr")
+        }
         log(
-            f"sass: instructions per Fp product on sm_90a: mont_mul<Fp> (K1) {sass['probe_mont_mul'] - base}, "
-            f"fp_mont_mul (K3, K4) {sass['probe_fp_mont_mul'] - base} (probe kernels {json.dumps(sass)}, "
-            f"less the load/store probe's {base})"
+            f"sass: instructions per call on sm_90a, less the load/store probe of the field: {json.dumps(per_call)} "
+            f"(probe kernels {json.dumps(sass)})"
         )
     card = nvidia_smi("name,power.limit")
     log(card)
@@ -647,7 +799,7 @@ def main() -> int:
     log(f"bounds: {sms} SMs at the max SM clock {clock_mhz:.0f} MHz, {IMAD_PER_CLOCK_PER_SM} IMAD/clock/SM, {HBM_BYTES_PER_S / 1e12} TB/s")
 
     # Phase 2: kernels against their plain versions.
-    rows = check_kernels(device, clock_mhz * 1e6, sms)
+    rows, every = check_kernels(device, clock_mhz * 1e6, sms)
 
     # Phase 3: the main path.
     from kzg_rust_tpu_torch.backends.torch_backend import TorchBackend
@@ -656,17 +808,21 @@ def main() -> int:
 
     # Phase 4: report.
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
-    for row in rows + [r["at_narrow"] for r in rows if "at_narrow" in r]:
+    for row in every:
         entry = row["name"].split()[-1]
         row["launches"] = report["launches"][small][entry]
         row[f"launches_n{large}"] = report["launches"][large][entry]
     missing = [e for e, c in report["launches"][small].items() if c == 0 and e not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels of the path never launched by the n={small} batch: {missing}")
-    for n in BATCH_SIZES:  # the window-base chain is one launch, with no one-step K4 beside it
-        got = (report["launches"][n]["kzg_proj_double_chain"], report["launches"][n]["kzg_proj_double"])
-        if got != (1, 0):
-            raise AssertionError(f"n={n}: chain and one-step K4 launches {got}, expected (1, 0)")
+    # The window-base chain is one launch, with no one-step K4 beside it; the
+    # square root is one Fp chain, the Fermat inversion and x^4096 two Fr chains.
+    chain_counts = {"kzg_proj_double_chain": 1, "kzg_proj_double": 0, "kzg_fp_pow_const": 1, "kzg_fr_pow_const": 2}
+    for n in BATCH_SIZES:
+        got = {e: report["launches"][n][e] for e in chain_counts}
+        if got != chain_counts:
+            raise AssertionError(f"n={n}: chain launches {got}, expected {chain_counts}")
+        log(f"launches: n={n}: {sum(report['launches'][n].values())} in one valid batch; chains {json.dumps(got)}")
     for row in rows:
         log(f"launches: {row['name']}: {row['launches']} in one n={small} batch, {row[f'launches_n{large}']} in one n={large} batch")
     log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))

@@ -22,7 +22,7 @@
 // What the design does about it.
 // - The products run on PTX carry chains and wide multiplies (field.cuh
 //   fp_mont_mul): 902 instructions a product against the 1,113 of the
-//   64-bit C arithmetic of mont_mul<Fp> that K1 keeps.
+//   first core's 64-bit C arithmetic.
 // - K3 stages its block's operands and results through shared memory with
 //   coalesced 16-byte accesses (a point is 144 B = 9 x 16 B, and each
 //   thread's 16-byte shared loads hit distinct banks, 9 being odd).  The
@@ -249,25 +249,6 @@ __global__ void __launch_bounds__(T) proj_double_chain_kernel(
       o[v] = make_uint4(e.w[w], e.w[w + 1], e.w[w + 2], e.w[w + 3]);
     }
   }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// The widest block (128, 64 or 32 threads) that still gives every SM a
-// block; 32 when even that leaves SMs idle.
-int block_threads(long long n) {
-  const long long sms = sm_count();
-  for (int t = 128; t > 32; t /= 2)
-    if ((n + t - 1) / t >= sms) return t;
-  return 32;
 }
 
 bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }

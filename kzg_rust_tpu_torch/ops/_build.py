@@ -53,6 +53,8 @@ ENTRY_POINTS = {
     "kzg_fp_cmp": ("field_kernels.cu", _CMP),
     "kzg_fr_cmp": ("field_kernels.cu", _CMP),
     "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _I64, _I64, _I64, _P]),
+    "kzg_fp_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),
+    "kzg_fr_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),
     "kzg_proj_add": ("curve_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_proj_double": ("curve_kernels.cu", [_P, _P, _I64, _P]),
     "kzg_proj_double_chain": ("curve_kernels.cu", [_P, _P, _I64, _I64, _P]),
@@ -149,7 +151,8 @@ def _func(name: str):
 
 def launch(name: str, device, *args) -> None:
     """Launch entry point ``name`` on ``device``'s current stream: ``args``
-    are tensors (passed as device pointers) and ints."""
+    are tensors (passed as device pointers), ints, and ``bytes`` (passed as
+    host pointers)."""
     import torch
 
     if device.type != "cuda":

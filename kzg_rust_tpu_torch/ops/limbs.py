@@ -12,9 +12,11 @@ Montgomery words; :mod:`.jax_state` converts).  Values are canonical
 On a CUDA tensor each arithmetic function launches its hand-written kernel
 (``csrc/field_kernels.cu``: K1 ``kzg_fp_mont_mul`` replaces the JAX package's
 ``pallas_kernels.py:248`` ``mont_mul_fp_pallas``, K2 ``kzg_fr_mont_mul``
-replaces ``:252`` ``mont_mul_fr_pallas``; modular add, sub, compare and the
-domain sum are small launchers on the same device functions) or raises.  On
-a CPU tensor it runs the kernel's plain PyTorch version, ``*_plain`` below.
+replaces ``:252`` ``mont_mul_fr_pallas``; a constant-exponent chain of their
+products is one launch of ``kzg_fp_pow_const`` or ``kzg_fr_pow_const``;
+modular add, sub, compare and the domain sum are small launchers on the same
+device functions) or raises.  On a CPU tensor it runs the kernel's plain
+PyTorch version, ``*_plain`` below.
 PyTorch has no usable uint32 arithmetic, so the plain versions work in
 int64 on 16-bit half-words (24 for Fp, 16 for Fr): a column of half-word
 products stays below 2^37, and carries are resolved by repeated
@@ -33,6 +35,7 @@ from ..golden.field import P, R
 from . import _build
 
 WORD_BITS = 32
+MAX_POW_DIGITS = 96  # 4-bit digits of the chain kernels' largest exponent (< 2^384)
 HALF_BITS = 16
 HALF_MASK = (1 << HALF_BITS) - 1
 
@@ -54,7 +57,7 @@ class FieldSpec:
         self.r2 = (r * r) % modulus  # to-mont factor
         self.nprime = (-pow(modulus, -1, r)) % r  # -N^-1 mod R
         self.kernels = {
-            op: f"kzg_{name}_{op}" for op in ("mont_mul", "add", "sub", "cmp")
+            op: f"kzg_{name}_{op}" for op in ("mont_mul", "pow_const", "add", "sub", "cmp")
         }
         self._consts: dict = {}
 
@@ -270,6 +273,15 @@ def _check(spec: FieldSpec, *xs: torch.Tensor) -> None:
             raise ValueError(f"{spec.name}: operands on {xs[0].device} and {x.device}")
 
 
+def _check_aligned(name: str, *xs: torch.Tensor) -> None:
+    """The kernels move each element with 16-byte accesses: every operand
+    and output starts on 16 bytes (a contiguous word tensor always does, its
+    elements being 48 or 32 bytes)."""
+    for x in xs:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: operand at {x.data_ptr():#x} is not 16-byte aligned")
+
+
 def _launch_binary(name: str, spec: FieldSpec, a, b, out_dtype, out_last, *extra):
     shape = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
     n = math.prod(shape)
@@ -279,6 +291,7 @@ def _launch_binary(name: str, spec: FieldSpec, a, b, out_dtype, out_last, *extra
     if n:
         a_div, a_mod, a = _index_map(a, shape, spec.nwords)
         b_div, b_mod, b = _index_map(b, shape, spec.nwords)
+        _check_aligned(name, a, b, out)
         _build.launch(name, a.device, a, b, out, n, a_div, a_mod, b_div, b_mod, *extra)
     return out
 
@@ -369,30 +382,60 @@ def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, spec.const("one", a.device))
 
 
+def pow_digits(exponent: int) -> bytes:
+    """The 4-bit digits of ``exponent`` (1 <= e < 2^384), most significant
+    first, the first nonzero: the chain kernels' exponent."""
+    if not 1 <= exponent < 1 << (4 * MAX_POW_DIGITS):
+        raise ValueError(f"pow_const: exponent {exponent} outside [1, 2^{4 * MAX_POW_DIGITS})")
+    return bytes(int(c, 16) for c in f"{exponent:x}")
+
+
 def mont_pow_const(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^e (Montgomery in and out) for a constant exponent: 4-bit fixed
-    windows over a table a^0..a^15 (14 products), then per window four
-    squarings and one product (skipped for a zero digit)."""
-    one = spec.const("one_mont", a.device).expand_as(a).contiguous()
+    """a^e (Montgomery in and out) for a constant exponent.  On the card one
+    launch of the chain kernel for any e >= 1: per element the table
+    a^1..a^d for the largest digit d of e, then per further 4-bit digit four
+    squarings and a product for a nonzero digit, all in registers and
+    shared memory.  e = 0 is mont(1), with no launch."""
+    _check(spec, a)
     if exponent == 0:
-        return one
-    if exponent < 16:
-        acc = a
-        for bit in bin(exponent)[3:]:
-            acc = mont_sqr(spec, acc)
-            if bit == "1":
-                acc = mont_mul(spec, acc, a)
-        return acc
-    digits = [int(c, 16) for c in f"{exponent:x}"]  # MSB first, leading nonzero
-    table = [one, a]
-    for _ in range(14):
-        table.append(mont_mul(spec, table[-1], a))
+        return spec.const("one_mont", a.device).expand_as(a).contiguous()
+    if a.device.type == "cpu":
+        return mont_pow_const_plain(spec, a, exponent)
+    name = spec.kernels["pow_const"]
+    digits = pow_digits(exponent)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // spec.nwords
+    if n >= 1 << 31:
+        raise ValueError(f"{name}: {n} elements exceed the kernel's 32-bit index")
+    if n:
+        _check_aligned(name, a, out)
+        _build.launch(name, a.device, a, out, n, digits, len(digits))
+    return out
+
+
+def mont_pow_const_plain(
+    spec: FieldSpec, a: torch.Tensor, exponent: int, mul=mont_mul_plain, top: int = 15
+) -> torch.Tensor:
+    """Plain version of the chain kernels, one ``mul`` per product: 4-bit
+    fixed windows (the digits of :func:`pow_digits`) over a table
+    a^1..a^top (top - 1 products, top at least the largest digit), then per
+    further digit four squarings and one product (skipped for a zero digit).
+    ``top=max(pow_digits(e))`` is the kernels' own schedule.  With the
+    default table and ``mul=mont_mul`` on the card it is the chain as a
+    launch sequence of K1 or K2, one launch per product."""
+    if exponent == 0:
+        return spec.const("one_mont", a.device).expand_as(a).contiguous()
+    digits = pow_digits(exponent)
+    table = [None, a]
+    for _ in range(top - 1):
+        table.append(mul(spec, table[-1], a))
     acc = table[digits[0]]
     for d in digits[1:]:
         for _ in range(4):
-            acc = mont_sqr(spec, acc)
+            acc = mul(spec, acc, acc)
         if d:
-            acc = mont_mul(spec, acc, table[d])
+            acc = mul(spec, acc, table[d])
     return acc
 
 

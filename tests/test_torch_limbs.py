@@ -57,17 +57,25 @@ def _operands(modulus: int, n: int = 16):
 
 def test_header_constants_match_the_golden_field():
     """csrc/field.cuh's moduli and Montgomery constants are the golden
-    field's (the CUDA source cannot be compiled here)."""
+    field's (the CUDA source cannot be compiled here): the immediate tables
+    that every kernel takes the modulus from, and -N^-1 mod 2^32."""
     text = (REPO_ROOT / "kzg_rust_tpu_torch" / "csrc" / "field.cuh").read_text()
 
-    def words(name):
-        body = re.search(name + r"\[\d+\] = \{([^}]*)\}", text).group(1)
+    def value(body):
         return sum(int(w.rstrip("u"), 16) << (32 * i) for i, w in enumerate(re.findall(r"0x[0-9a-f]+u", body)))
+
+    def immediates(name):
+        pattern = r"uint32_t " + name + r"\(int j\) \{\s*constexpr uint32_t w\[(\d+)\] = \{([^}]*)\}"
+        count, body = re.search(pattern, text).groups()
+        assert len(re.findall(r"0x[0-9a-f]+u", body)) == int(count)
+        return value(body)
 
     def inv(name):
         return int(re.search(r"struct " + name + r" \{.*?INV = (0x[0-9a-f]+)u", text, re.S).group(1), 16)
 
-    assert words("FP_MOD") == P and words("FR_MOD") == R
+    assert immediates("fp_mod_word") == P and immediates("fr_mod_word") == R
+    for name, table in (("Fp", "fp_mod_word"), ("Fr", "fr_mod_word")):  # each field takes its own table
+        assert re.search(r"struct " + name + r" \{[^}]*mod\(int i\) \{ return " + table + r"\(i\); \}", text)
     for name, mod in (("Fp", P), ("Fr", R)):
         assert inv(name) * mod % (1 << 32) == (1 << 32) - 1  # -mod^-1 mod 2^32
 
@@ -141,6 +149,59 @@ def test_pow_inv_and_sum(spec):
     ) % spec.modulus
 
 
+POW_CASES = [("fp", (P + 1) // 4), ("fr", R - 2), ("fr", 4096)]
+
+
+@pytest.mark.parametrize("field,exponent", POW_CASES, ids=["fp-sqrt", "fr-inverse", "fr-x4096"])
+def test_mont_pow_const_matches_jax(field, exponent):
+    """The three constant-exponent chains of the verify path (the square
+    root, the Fermat inversion, x^4096) on the CPU against the JAX package's
+    mont_pow_const, on 12 seeded rows with 0, 1 and N - 1 among them: raw
+    Montgomery words for Fp (both packages use R = 2^384), re-radixed through
+    jax_state for Fr (2^264 -> 2^256)."""
+    spec, jspec = dict(zip(("fp", "fr"), SPECS))[field]
+    a = _values(6, spec.modulus, 12)
+    a[:3] = [0, 1, spec.modulus - 1]
+    jr = 1 << (12 * jspec.nlimbs)
+    ja = jnp.asarray(JL.ints_to_limbs(jspec.nlimbs, [x * jr % spec.modulus for x in a]))
+    want = np.asarray(JL.mont_pow_const(jspec, ja, exponent))
+    got = L.mont_pow_const(spec, L.to_device(spec, [x * spec.mont_r % spec.modulus for x in a], "cpu"), exponent)
+    carry = JS.fp_from_jax if spec is L.FP else (lambda x: JS.fr_from_jax(x, mont=True))
+    assert torch.equal(got, carry(want))
+    rinv = pow(spec.mont_r, -1, spec.modulus)
+    assert [v * rinv % spec.modulus for v in L.words_to_ints(got)] == [pow(x, exponent, spec.modulus) for x in a]
+
+
+@pytest.mark.parametrize("exponent", [1, 5, 15, 16, 4096, (P + 1) // 4, R - 2], ids=lambda e: f"e{e.bit_length()}b{e % 97}")
+def test_pow_chain_schedule(exponent):
+    """The chain kernels' host side and schedule: the digits handed to the
+    kernel rebuild e exactly, and mont_pow_const_plain on the kernel's
+    schedule (the table a^1..a^top for the largest digit, then per further
+    digit four squarings and, for a nonzero digit, a product by a table
+    entry) makes exactly the kernel's count of products and gives a^e on
+    both fields, 0, 1 and N - 1 included."""
+    digits = L.pow_digits(exponent)
+    assert 1 <= len(digits) <= L.MAX_POW_DIGITS and digits[0] != 0 and max(digits) < 16
+    assert sum(d << (4 * k) for k, d in enumerate(reversed(digits))) == exponent
+    top = max(digits)
+    kernel_products = top - 1 + 4 * (len(digits) - 1) + sum(1 for d in digits[1:] if d)
+    for spec in (L.FP, L.FR):
+        x = [0, 1, spec.modulus - 1] + _values(7, spec.modulus, 3)
+        products = []
+
+        def mul(s, u, v):
+            products.append(1)
+            return L.mont_mul_plain(s, u, v)
+
+        am = L.to_mont(spec, L.to_device(spec, x, "cpu"))
+        got = L.mont_pow_const_plain(spec, am, exponent, mul=mul, top=top)
+        assert len(products) == kernel_products
+        assert L.words_to_ints(L.from_mont(spec, got)) == [pow(v, exponent, spec.modulus) for v in x]
+    for bad in (0, 1 << (4 * L.MAX_POW_DIGITS)):
+        with pytest.raises(ValueError):
+            L.pow_digits(bad)
+
+
 def test_sum_mod_matches_sum_mont_redc():
     """The port's plain modular sum + from_mont equals the JAX package's
     one-REDC sum (canonical sum of the values)."""
@@ -173,6 +234,15 @@ def test_broadcast_index_map():
     assert L._index_map(torch.zeros(4, 8, dtype=torch.int32), (3, 4), 8)[:2] == (1, 4)
     div, mod, mat = L._index_map(torch.zeros(3, 1, 5, 8, dtype=torch.int32), (3, 4, 5), 8)
     assert (div, mod, tuple(mat.shape)) == (1, 60, (3, 4, 5, 8))
+
+
+def test_unaligned_operand_raises():
+    """The field kernels move elements with 16-byte accesses; an operand
+    that does not start on 16 bytes raises instead of taking another route."""
+    words = torch.zeros(17, 8, dtype=torch.int32)
+    L._check_aligned("kzg_fr_mont_mul", words[1:], words[2:])
+    with pytest.raises(ValueError, match="16-byte"):
+        L._check_aligned("kzg_fr_mont_mul", words.flatten()[1:])
 
 
 def test_cuda_launch_needs_a_cuda_tensor():
