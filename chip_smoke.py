@@ -14,18 +14,28 @@ Phases, any failure of which exits non-zero without the final line:
    both with CUDA events (a kernel bound by bytes on operands the L2 cache
    does not hold); the K4 chain also against as many one-step K4
    launches, and the constant-exponent chains of K1 and K2 against the
-   same chains as launch sequences of K1 or K2, which are timed too;
-3. drive the main path, ``Kzg.verify_blob_kzg_proof_batch`` through
+   same chains as launch sequences of K1 or K2, which are timed too; the
+   prover's M1 (GLV digits) and M2 (MSM accumulation) at mainnet width,
+   edge scalars and an infinity column included;
+3. drive the verify path, ``Kzg.verify_blob_kzg_proof_batch`` through
    ``TorchBackend()`` on the mainnet setup: the 22 mainnet batch vectors,
    then batches of n = 64 and n = 4096 sampled (numpy seed) from the six
    valid ``verify_blob_kzg_proof`` vectors, with five outcome lanes each
    (valid, swapped proof, non-canonical blob, malformed point, non-subgroup
    point; the n = 64 lanes cross-checked against the golden backend), the
    launch counts of one valid batch, stage times and peak memory;
-4. check that every kernel of the path launched in the n = 64 batch, and
-   that at both n the window-base chain and the square root were one launch
-   each and the Fermat inversion and x^4096 one each of the Fr chain, and
-   print the report lines and the ``kernels`` JSON line.
+3b. drive the prover path through ``TorchBackend()``: build the mainnet
+   MSM table on the card (time, bytes, peak memory), run every mainnet
+   vector of ``blob_to_kzg_commitment``, ``compute_kzg_proof``,
+   ``compute_blob_kzg_proof`` and ``verify_blob_kzg_proof``, two in-domain
+   proofs (z = the first and the last root) checked by y and by
+   ``verify_kzg_proof``, the launch counts of one commit and one proof (M1
+   and M2 once each), host and device times;
+4. check that every kernel of the path launched in the n = 64 batch, one
+   commit or one proof, that at both n the window-base chain and the square
+   root were one launch each and the Fermat inversion and x^4096 one each
+   of the Fr chain, and print the report lines and the ``kernels`` JSON
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -48,11 +58,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0x5EED
 BAD_FROM_END = 3  # the corrupted lane sits near the end of the batch
 BATCH_SIZES = (64, 4096)  # a block's batch, and bulk sync; the first is cross-checked on golden
-# Built and held against their plain versions, but the verify path does not
-# launch them: the barycentric domain sum runs in kzg_fr_sum_rows, and the
-# window-base chain runs K4 as kzg_proj_double_chain, one launch for all its
-# doublings (kzg_proj_double is K4 alone, for checking and timing).
-OFF_PATH = {"kzg_fr_add", "kzg_proj_double"}
+# Built and held against their plain versions, but no path launches them:
+# the barycentric domain sum runs in kzg_fr_sum_rows, the window-base chains
+# run K4 as kzg_proj_double_chain, one launch for all their doublings
+# (kzg_proj_double is K4 alone), and the mixed add runs inside M2
+# (kzg_proj_add_mixed is it alone), for checking and timing.
+OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed"}
 # Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64:
 # K1 at stage 1's width (2 * 4096 points); K2 and the Fr launchers at a
 # product-tree level of the barycentric evaluation (4096 blobs x 64), and K2
@@ -62,7 +73,9 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double"}
 # rows of 64 blobs); K3 at the subgroup check's first tree level (8 of its
 # 17 window rows x 8192 points) and at stage 2's widest, the right-hand
 # tree's first level (66 windows x 4096 blobs x 4 lanes, halved); K4 and its
-# chain at the window-base chain's widths (n = 4096 and n = 64).
+# chain at the window-base chain's widths (n = 4096 and n = 64).  The
+# prover's MSM at mainnet width: M1 over one blob's 4096 scalars, M2 over
+# the [26, 16, 4096] table, the mixed add alone at M2's partial-sum count.
 SHAPES = {
     "fp": 8192,
     "fr": 262144,
@@ -72,6 +85,14 @@ SHAPES = {
     "sum": (4096, 64),
     "add": (65536, 540672),
     "double": (8192, 128),
+    "msm": 4096,
+}
+# The mainnet vectors of the prover phase, by kind, and how many each has.
+PROVER_VECTORS = {
+    "blob_to_kzg_commitment": 10,
+    "compute_kzg_proof": 46,
+    "compute_blob_kzg_proof": 14,
+    "verify_blob_kzg_proof": 24,
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet) and the integer pipe rate
@@ -79,10 +100,10 @@ SHAPES = {
 # capability 9.0: 64 32-bit integer multiply-adds per clock per SM).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_CLOCK_PER_SM = 64
-# Fp products in a complete add and in a doubling as the curve kernels take
-# them: RCB's products by b3 = 12 are adds there (the same canonical value),
-# so 14 - 2 and 9 - 1.
-ADD_PRODUCTS, DOUBLE_PRODUCTS = 12, 8
+# Fp products in a complete add, a doubling and a mixed add as the curve
+# kernels take them: RCB's products by b3 = 12 are adds there (the same
+# canonical value), so 14 - 2, 9 - 1 and 13 - 2.
+ADD_PRODUCTS, DOUBLE_PRODUCTS, MIXED_PRODUCTS = 12, 8, 11
 
 
 # Probe kernels that differ only in what they do between loading two
@@ -558,9 +579,97 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         )
         dbl_rows.append(chain)
 
+    # The prover's MSM kernels at mainnet width.  M1 over one blob's 4096
+    # scalars, the edge scalars of tests/test_ops_msm.py leading; M2 over a
+    # [26, 16, 4096] table of random canonical words (its arithmetic is the
+    # same on any canonical operands; the real table runs in phase 3b, where
+    # the vectors check it) with point 5 infinity, on M1's digits, at the
+    # partial-sum count the path takes.  M2's work depends on the digits:
+    # its bound counts the selections with a nonzero digit and a finite
+    # base, 11 products each and 12 in the phi half, and the 96 bytes of
+    # table each reads.
+    from kzg_rust_tpu_torch.ops import glv
+    from kzg_rust_tpu_torch.ops import msm as M
+
+    msrc = "kzg_rust_tpu_torch/csrc/msm_kernels.cu"
+    npts = SHAPES["msm"]
+    scalars = random_field(rng, R, npts)
+    scalars[:8] = [0, 1, R - 1, R // 2, (R + 1) // 2, glv.Z2, R - glv.Z2, glv.LAM]
+    k = L.to_device(L.FR, scalars, device)
+    m1 = record(
+        "M1 kzg_glv_digits",
+        M.glv_digits_from_limbs,
+        M.glv_digits_plain,
+        (k,),
+        msrc,
+        "kzg_rust_tpu/ops/msm.py:187 (glv_digits_from_limbs, an XLA program)",
+        npts * (8 * 4 + 2 * M.GLV_NUM_WINDOWS),
+        npts * 2 * (8 * 5 + 4 * 4),
+        50,
+        keep=False,
+    )
+    digits = M.glv_digits_from_limbs(k)
+    check = digits.cpu().to(torch.int64)
+    for i in (0, 1, 2, 5, npts - 1):
+        v1, v2 = (sum(int(check[h, j, i]) << (5 * j) for j in range(M.GLV_NUM_WINDOWS)) for h in (0, 1))
+        if (v1 + v2 * glv.LAM) % R != scalars[i] or max(abs(v1), abs(v2)) >= 1 << 128:
+            raise AssertionError(f"M1: the digits of scalar {i} do not recombine to it")
+    fold = M.default_fold(npts, device)
+    table = L.to_device(L.FP, random_field(rng, P, M.GLV_NUM_WINDOWS * M.GLV_NUM_MULTIPLES * npts * 2), device)
+    table = table.reshape(M.GLV_NUM_WINDOWS, M.GLV_NUM_MULTIPLES, npts, 2, L.FP.nwords)
+    inf = torch.zeros(npts, dtype=torch.bool, device=device)
+    inf[5] = True
+    valid = (digits != 0) & ~inf[None, None]
+    selected = [int(valid[h].sum()) for h in (0, 1)]
+    m2 = record(
+        "M2 kzg_msm_glv_accumulate",
+        lambda t, f=fold: M.msm_accumulate(t, inf, digits, f),
+        lambda t, f=fold: M.msm_accumulate_plain(t, inf, digits, f),
+        (table,),
+        msrc,
+        "kzg_rust_tpu/ops/msm.py:202 (_msm_core_glv with curve.py:350 fold_reduce_mixed, an XLA program)",
+        sum(selected) * 96 + digits.numel() + npts + fold * 144,
+        (selected[0] * MIXED_PRODUCTS + selected[1] * (MIXED_PRODUCTS + 1)) * mont_products(12),
+        20,
+        keep=False,
+        plain_reps=1,
+    )
+    m2.update(fold=fold, selections=sum(selected), selections_phi=selected[1], columns_per_thread=-(-2 * M.GLV_NUM_WINDOWS * npts // fold))
+    # The choice of the partial-sum count: M2 and the K3 tree over its
+    # partials at 128 to 512 partial sums an SM (CUDA-graph replay; the tree
+    # also as called from Python, as the path enqueues it).
+    sweep = {}
+    for per_sm in (128, 256, 384, 512):
+        f = min(sms * per_sm, 2 * M.GLV_NUM_WINDOWS * npts)
+        partials = M.msm_accumulate(table, inf, digits, f)
+        sweep[per_sm] = {
+            "fold": f,
+            "m2_ms": graph_ms(lambda f=f: M.msm_accumulate(table, inf, digits, f), 10),
+            "tree_ms": graph_ms(lambda p=partials: C.sum_points(p), 10),
+            "tree_call_ms": cuda_ms(lambda p=partials: C.sum_points(p), 10),
+        }
+    m2["fold_sweep"] = sweep
+    log(f"kernel M2: partial sums an SM -> M2 and tree ms: {json.dumps(sweep)}")
+    m1["at_msm_width"] = npts
+    # The mixed add alone, one per partial sum of M2.
+    mp, _ = random_points(rng, fold, device)
+    mq = L.to_device(L.FP, random_field(rng, P, 2 * fold), device).reshape(fold, 2, L.FP.nwords)
+    record(
+        "kzg_proj_add_mixed",
+        C.proj_add_mixed,
+        C.proj_add_mixed_plain,
+        (mp, mq),
+        msrc,
+        "kzg_rust_tpu/ops/curve.py:157 (proj_add_mixed, an XLA op)",
+        fold * (144 + 96 + 144),
+        fold * MIXED_PRODUCTS * mont_products(12),
+        50,
+    )
+    del table
+
     # The kernels line: K1 and K2 as the chains the path launches, with
     # their single products beside them; K3 at the widest launch and K4 as
-    # the chain, each with its narrower shape beside it.
+    # the chain, each with its narrower shape beside it; M1 and M2.
     k1 = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][0])]
     k1["at_narrow"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][1])]
     k2 = chains[("fr", "r-2", SHAPES["fr_pow"][0])]
@@ -573,7 +682,7 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         row["product_plain_ms"] = products[spec][0]["plain_ms"]
     add_rows[1]["at_narrow"] = add_rows[0]
     dbl_rows[0]["at_narrow"] = dbl_rows[1]
-    rows += [k1, k2, add_rows[1], dbl_rows[0]]
+    rows += [k1, k2, add_rows[1], dbl_rows[0], m1, m2]
     return rows, every
 
 
@@ -583,8 +692,9 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
 
 
 def read_vector(path: str):
-    """The vectors' YAML is flow lists of quoted hex strings and one
-    true/false/null output; read with a regular expression."""
+    """The vectors' YAML is flow lists of quoted hex strings and quoted
+    strings in, and out a quoted string, a list of them, or
+    true/false/null; read with regular expressions."""
     with open(path) as fh:
         text = fh.read()
     inp, out = text.split("\noutput:")
@@ -592,7 +702,11 @@ def read_vector(path: str):
     for m in re.finditer(r"(\w+):\s*(\[[^\]]*\]|'[^']*')", inp):
         strs = re.findall(r"'([^']*)'", m.group(2))
         fields[m.group(1)] = strs if m.group(2).startswith("[") else strs[0]
-    return fields, {"true": True, "false": False, "null": None}[out.strip()]
+    out = out.strip()
+    strs = re.findall(r"'([^']*)'", out)
+    if out.startswith("["):
+        return fields, strs
+    return fields, strs[0] if strs else {"true": True, "false": False, "null": None}[out]
 
 
 def out_of_subgroup_compressed(rng) -> bytes:
@@ -606,7 +720,7 @@ def out_of_subgroup_compressed(rng) -> bytes:
             return gc.g1_compress((x, y))
 
 
-def main_path(backend) -> dict:
+def main_path(backend, settings) -> dict:
     import numpy as np
     import torch
 
@@ -620,9 +734,6 @@ def main_path(backend) -> dict:
     )
     from kzg_rust_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    settings = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup.txt"))
-    log(f"main: mainnet trusted setup loaded in {time.perf_counter() - t0:.2f} s")
     golden = GoldenBackend()
     vec = os.path.join(ROOT, "tests", "vectors")
 
@@ -743,6 +854,152 @@ def main_path(backend) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: the prover path
+# ---------------------------------------------------------------------------
+
+
+def prover_path(backend, settings) -> dict:
+    import torch
+
+    from kzg_rust_tpu_torch import Blob, Bytes32, Bytes48, Kzg, KzgError
+    from kzg_rust_tpu_torch.ops import _build
+
+    report = {"launches": {}, "host_ms": {}, "stage_ms": {}, "vectors": {}}
+
+    # The MSM table, built at the backend's first use.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    a.record()
+    ctx = backend._msm_ctx(settings)
+    b.record()
+    b.synchronize()
+    report["table"] = {
+        "host_ms": (time.perf_counter() - t) * 1e3,
+        "device_ms": a.elapsed_time(b),
+        "bytes": ctx.table.numel() * ctx.table.element_size() + ctx.inf_mask.numel(),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "peak_above_before_bytes": torch.cuda.max_memory_allocated() - before,
+        "fold": ctx.fold,
+        "shape": list(ctx.table.shape),
+    }
+    log(f"prover: MSM table {report['table']['shape']} ({report['table']['bytes']} bytes) built in {report['table']['host_ms']:.1f} ms host clock, {report['table']['device_ms']:.1f} ms between CUDA events; peak {report['table']['peak_mem_bytes']} bytes ({report['table']['peak_above_before_bytes']} above what was allocated before); M2 takes {ctx.fold} partial sums")
+
+    # Every mainnet vector of the four calls.
+    vec = os.path.join(ROOT, "tests", "vectors")
+
+    def hexed(x) -> str:
+        return "0x" + bytes(x).hex()
+
+    calls = {
+        "blob_to_kzg_commitment": lambda f: hexed(Kzg.blob_to_kzg_commitment(Blob.from_hex(f["blob"]), settings, backend)),
+        "compute_kzg_proof": lambda f: [hexed(x) for x in Kzg.compute_kzg_proof(Blob.from_hex(f["blob"]), Bytes32.from_hex(f["z"]), settings, backend)],
+        "compute_blob_kzg_proof": lambda f: hexed(Kzg.compute_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), settings, backend)),
+        "verify_blob_kzg_proof": lambda f: Kzg.verify_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), Bytes48.from_hex(f["proof"]), settings, backend),
+    }
+    for kind, count in PROVER_VECTORS.items():
+        files = sorted(glob.glob(os.path.join(vec, kind, "*", "*", "data.yaml")))
+        if len(files) != count:
+            raise AssertionError(f"expected {count} {kind} vectors, found {len(files)}")
+        for f in files:
+            inp, expected = read_vector(f)
+            try:
+                got = calls[kind](inp)
+            except KzgError:
+                got = None
+            if got != expected:
+                raise AssertionError(f"{f}: got {got}, expected {expected}")
+        report["vectors"][kind] = count
+        log(f"prover: all {count} mainnet {kind} vectors pass")
+
+    # Two in-domain proofs of a blob with distinct elements: y is the blob's
+    # element at the root, and the proof verifies.
+    files = sorted(glob.glob(os.path.join(vec, "blob_to_kzg_commitment", "*", "*_valid_*", "data.yaml")))
+    cases = [read_vector(f) for f in files]
+    inp, commitment = max(cases, key=lambda c: len(set(bytes.fromhex(c[0]["blob"][2:])[i : i + 32] for i in range(0, 4096 * 32, 32))))
+    blob = Blob.from_hex(inp["blob"])
+    n = settings.preset.field_elements_per_blob
+    for m in (0, n - 1):
+        z = Bytes32(settings.roots_of_unity[m].to_bytes(32, "big"))
+        proof, y = Kzg.compute_kzg_proof(blob, z, settings, backend)
+        if bytes(y) != bytes(blob)[32 * m : 32 * m + 32]:
+            raise AssertionError(f"in-domain z = roots[{m}]: y is not the blob's element")
+        if Kzg.verify_kzg_proof(Bytes48.from_hex(commitment), z, y, proof, settings, backend) is not True:
+            raise AssertionError(f"in-domain z = roots[{m}]: the proof does not verify")
+        report.setdefault("in_domain", []).append(m)
+    log(f"prover: in-domain proofs at roots[0] and roots[{n - 1}]: y is the blob's element and verify_kzg_proof accepts")
+
+    # Launch counts of one commit and one proof: counts set to 0 just
+    # before, read just after.  M1 and M2 once per MSM.
+    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
+    commitment = Bytes48(bytes(Kzg.blob_to_kzg_commitment(blob, settings, backend)))
+    entry = {
+        "commit": lambda: Kzg.blob_to_kzg_commitment(blob, settings, backend),
+        "proof": lambda: Kzg.compute_kzg_proof(blob, z_out, settings, backend),
+        "proof_in_domain": lambda: Kzg.compute_kzg_proof(blob, Bytes32(settings.roots_of_unity[7].to_bytes(32, "big")), settings, backend),
+        "blob_proof": lambda: Kzg.compute_blob_kzg_proof(blob, commitment, settings, backend),
+    }
+    for name in ("commit", "proof"):
+        _build.reset_launches()
+        entry[name]()
+        torch.cuda.synchronize()
+        report["launches"][name] = dict(_build.LAUNCHES)
+        msm = {e: report["launches"][name][e] for e in ("kzg_glv_digits", "kzg_msm_glv_accumulate")}
+        if msm != {"kzg_glv_digits": 1, "kzg_msm_glv_accumulate": 1}:
+            raise AssertionError(f"{name}: M1 and M2 launches {msm}, expected one each")
+        log(f"prover: launches in one {name}: {sum(report['launches'][name].values())}: {json.dumps({e: c for e, c in report['launches'][name].items() if c})}")
+
+    # Host-clock milliseconds of each entry point (median of 3) and the
+    # device milliseconds of the parts of a commit and a proof (CUDA events
+    # around each part, median of 3; a part's time includes any wait for
+    # the host to enqueue it).
+    blob_proof = Bytes48(bytes(entry["blob_proof"]()))
+    entry["verify_blob"] = lambda: Kzg.verify_blob_kzg_proof(blob, commitment, blob_proof, settings, backend)
+    if entry["verify_blob"]() is not True:
+        raise AssertionError("verify_blob_kzg_proof rejects the blob proof the prover made")
+    report["host_steps_ms"] = {}
+    for name, fn in entry.items():
+        times, stages, steps = [], {}, {}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+            if name != "verify_blob":
+                for s, v in backend.stage_ms().items():
+                    stages.setdefault(s, []).append(v)
+                for s, v in backend.host_ms.items():
+                    steps.setdefault(s, []).append(v)
+        report["host_ms"][name] = statistics.median(times)
+        if stages:
+            report["stage_ms"][name] = {s: statistics.median(v) for s, v in stages.items()}
+            report["host_steps_ms"][name] = {s: statistics.median(v) for s, v in steps.items()}
+        log(
+            f"prover: {name}: {report['host_ms'][name]:.2f} ms end to end (host clock, median of 3); device ms of its parts "
+            f"(CUDA events, median of 3): {json.dumps(report['stage_ms'].get(name, {}))}; host ms between the backend's steps: "
+            f"{json.dumps(report['host_steps_ms'].get(name, {}))}"
+        )
+    # The host path the port replaces, once each on this machine's CPU: the
+    # golden Pippenger and the host quotient loop.
+    from kzg_rust_tpu_torch.backends.golden_backend import GoldenBackend
+
+    golden = GoldenBackend()
+    for name, fn in (
+        ("commit", lambda: Kzg.blob_to_kzg_commitment(blob, settings, golden)),
+        ("proof", lambda: Kzg.compute_kzg_proof(blob, z_out, settings, golden)),
+    ):
+        t = time.perf_counter()
+        want = fn()
+        report["host_ms"][f"golden_{name}"] = (time.perf_counter() - t) * 1e3
+        if want != entry[name]():
+            raise AssertionError(f"{name}: the card and the golden backend disagree")
+    log(f"prover: the golden host path, once: commit {report['host_ms']['golden_commit']:.0f} ms, proof {report['host_ms']['golden_proof']:.0f} ms (host clock), the same bytes")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -801,20 +1058,29 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     rows, every = check_kernels(device, clock_mhz * 1e6, sms)
 
-    # Phase 3: the main path.
+    # Phase 3: the verify path, then (3b) the prover path, on one backend.
+    from kzg_rust_tpu_torch import Kzg
     from kzg_rust_tpu_torch.backends.torch_backend import TorchBackend
 
-    report = main_path(TorchBackend(time_stages=True))
+    t0 = time.perf_counter()
+    settings = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup.txt"))
+    log(f"main: mainnet trusted setup loaded in {time.perf_counter() - t0:.2f} s")
+    backend = TorchBackend(time_stages=True)
+    report = main_path(backend, settings)
+    prover = prover_path(backend, settings)
 
-    # Phase 4: report.
+    # Phase 4: report.  A kernel's launches on the path: one valid n = 64
+    # batch, one commit and one proof, each counted from 0.
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
+    runs = {f"n{small}": report["launches"][small], "commit": prover["launches"]["commit"], "proof": prover["launches"]["proof"]}
     for row in every:
         entry = row["name"].split()[-1]
-        row["launches"] = report["launches"][small][entry]
+        row["launches"] = sum(counts[entry] for counts in runs.values())
+        row["launches_by_run"] = {name: counts[entry] for name, counts in runs.items()}
         row[f"launches_n{large}"] = report["launches"][large][entry]
-    missing = [e for e, c in report["launches"][small].items() if c == 0 and e not in OFF_PATH]
+    missing = [e for e in _build.ENTRY_POINTS if e not in OFF_PATH and not any(counts[e] for counts in runs.values())]
     if missing:
-        raise AssertionError(f"kernels of the path never launched by the n={small} batch: {missing}")
+        raise AssertionError(f"kernels of the path never launched by the n={small} batch, a commit or a proof: {missing}")
     # The window-base chain is one launch, with no one-step K4 beside it; the
     # square root is one Fp chain, the Fermat inversion and x^4096 two Fr chains.
     chain_counts = {"kzg_proj_double_chain": 1, "kzg_proj_double": 0, "kzg_fp_pow_const": 1, "kzg_fr_pow_const": 2}
@@ -824,11 +1090,13 @@ def main() -> int:
             raise AssertionError(f"n={n}: chain launches {got}, expected {chain_counts}")
         log(f"launches: n={n}: {sum(report['launches'][n].values())} in one valid batch; chains {json.dumps(got)}")
     for row in rows:
-        log(f"launches: {row['name']}: {row['launches']} in one n={small} batch, {row[f'launches_n{large}']} in one n={large} batch")
+        log(f"launches: {row['name']}: {row['launches']} on the path ({json.dumps(row['launches_by_run'])}), {row[f'launches_n{large}']} in one n={large} batch")
     log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))
-    # The kernels line lists the ports of the repo's TPU kernels, K1-K4; the
-    # launchers that share their device functions are checked and logged above.
-    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith("K")]}))
+    log(json.dumps({"prover": prover, "card": card}))
+    # The kernels line lists the ports of the repo's TPU kernels, K1-K4, and
+    # the prover's MSM kernels, M1 and M2; the launchers that share their
+    # device functions are checked and logged above.
+    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith(("K", "M"))]}))
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

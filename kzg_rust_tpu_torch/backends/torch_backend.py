@@ -1,17 +1,30 @@
 """PyTorch/CUDA backend.
 
-Runs ``verify_blob_kzg_proof_batch`` as three device stages of hand-written
-CUDA kernels (:mod:`kzg_rust_tpu_torch.ops.verify_kernels`) followed by one
-pairing on the host: the device branch of the JAX package's
-``jax_backend.JaxBackend._verify_batch_device``.  Commitments, proofs and
-single-proof verification stay the inherited host code (GoldenBackend).
+Runs on the card, as launch sequences of the hand-written CUDA kernels:
+
+* ``verify_blob_kzg_proof_batch`` as three device stages
+  (:mod:`kzg_rust_tpu_torch.ops.verify_kernels`) followed by one pairing on
+  the host: the device branch of the JAX package's
+  ``jax_backend.JaxBackend._verify_batch_device``.  Batch sizes are padded
+  to powers of two (at least 4) with infinity points and zero blobs, which
+  are identities through every stage;
+* the prover, ``blob_to_kzg_commitment`` and ``compute_kzg_proof`` (and
+  through it ``compute_blob_kzg_proof``), each one device sequence
+  (:mod:`kzg_rust_tpu_torch.ops.prover_kernels`) and one fetch: the device
+  branch of ``jax_backend`` ``blob_to_commitment_pipeline`` and
+  ``compute_kzg_proof_pipeline``.  Below 8 setup points there is no MSM
+  table and the calls take the host path, as the JAX backend does (the
+  reference goes naive there, utils.rs:369-371);
+* the polynomial math of the piecewise protocol path (the single-blob
+  barycentric evaluation behind ``verify_blob_kzg_proof``, the quotients)
+  and the fixed-base MSM.
+
+The pairings and the runtime-base group operations of single-proof
+verification stay the inherited host code (GoldenBackend).
 
 ``TorchBackend()`` runs on the current CUDA device and raises where CUDA is
 absent; only an explicit ``TorchBackend(device="cpu")`` runs the kernels'
 plain PyTorch versions (the CPU tests).
-
-Batch sizes are padded to powers of two (at least 4) with infinity points
-and zero blobs, which are identities through every stage.
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ from ..messages import (
 )
 from .golden_backend import GoldenBackend
 
-STAGES = ("stage1", "bary", "stage2")
+STAGES = ("stage1", "bary", "stage2", "quotient", "digits", "accumulate", "tree")
 
 
 def _pow2_pad(n: int, lo: int = 2) -> int:
@@ -72,7 +85,7 @@ class TorchBackend(GoldenBackend):
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = torch.device(device)
         self._ctx = {}
-        # With time_stages on a CUDA device, each batch records a pair of
+        # With time_stages on a CUDA device, each call records a pair of
         # CUDA events around every stage (stage_ms() reads them) and the
         # host's milliseconds between its steps (host_ms).
         self.time_stages = time_stages and self.device.type == "cuda"
@@ -94,8 +107,12 @@ class TorchBackend(GoldenBackend):
             self.host_ms[step] = (now - self._t) * 1e3
             self._t = now
 
+    def _start_timing(self) -> None:
+        self._events, self.host_ms = {}, {}
+        self._t = time.perf_counter()
+
     def stage_ms(self) -> dict:
-        """Device milliseconds of each stage of the last batch (CUDA events;
+        """Device milliseconds of each stage of the last call (CUDA events;
         includes any idle gaps while the host enqueued the stage)."""
         torch.cuda.synchronize(self.device)
         return {
@@ -154,7 +171,7 @@ class TorchBackend(GoldenBackend):
         from ..utils import bls_serde as serde
 
         dev = self.device
-        self._t = time.perf_counter()
+        self._start_timing()
         n = len(blobs)
         preset = settings.preset
         npad = _pow2_pad(n, lo=4)
@@ -278,3 +295,117 @@ class TorchBackend(GoldenBackend):
 
             cache[key] = pk.FrContext.build(settings, self.device)
         return cache[key]
+
+    # -- prover (device pipelines) --------------------------------------------
+
+    def _msm_ctx(self, settings):
+        """Per-settings GLV table on this device, built at the first use;
+        None below 8 points (the reference goes naive there,
+        utils.rs:369-371)."""
+        cache = settings._device_cache
+        key = ("msm", str(self.device))
+        if key not in cache:
+            from ..ops import msm as M
+
+            n = settings.preset.field_elements_per_blob
+            cache[key] = None if n < 8 else M.MsmContext.build(settings, self.device)
+        return cache[key]
+
+    def _blob_dev(self, settings, blob):
+        """One blob's bytes -> [n, 32] uint8 on the device; BadArgs on a
+        wrong length."""
+        if len(blob) != settings.preset.bytes_per_blob:
+            raise BadArgs(MSG_BLOB_LENGTH)
+        arr = np.frombuffer(bytearray(bytes(blob)), dtype=np.uint8).reshape(-1, 32)
+        return torch.from_numpy(arr).to(self.device)
+
+    def _fetch(self, *parts):
+        """One device-to-host copy of the int32 words of ``parts``."""
+        packed = torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
+        return packed.cpu().numpy()
+
+    def blob_to_commitment_pipeline(self, settings, blob):
+        """``blob_to_kzg_commitment`` (reference: kzg.rs:396-406) as one
+        device sequence (ingest, canonicality, M1, M2, K3 tree) and one
+        fetch of the point and the flag."""
+        from ..ops import curve as C
+        from ..ops import prover_kernels as PR
+
+        ctx = self._msm_ctx(settings)
+        if ctx is None:
+            return NotImplemented
+        self._start_timing()
+        blob_dev = self._blob_dev(settings, blob)
+        self._lap("upload")
+        point, ok = PR.commit(ctx, blob_dev, self._mark)
+        self._lap("enqueue")
+        arr = self._fetch(point, ok)
+        self._lap("fetch_wait")
+        if not arr[-1]:
+            raise BadArgs(MSG_INVALID_BYTES32)
+        return C.proj_to_points(arr[:-1].reshape(1, 3, -1))[0]
+
+    def compute_kzg_proof_pipeline(self, settings, blob, z: int):
+        """``compute_kzg_proof_impl`` (reference: kzg.rs:461-528) as one
+        device sequence (ingest, y, quotient, M1, M2, K3 tree) and one fetch
+        of the proof point, y and the flag.  Whether z is a root of the
+        domain is decided here on the host."""
+        from ..ops import curve as C
+        from ..ops import limbs as L
+        from ..ops import prover_kernels as PR
+        from ..ops.limbs import FR
+
+        ctx = self._msm_ctx(settings)
+        if ctx is None:
+            return NotImplemented
+        self._start_timing()
+        blob_dev = self._blob_dev(settings, blob)
+        self._lap("upload")
+        m = self._root_index(settings).get(z)
+        point, y, ok = PR.proof(self._fr_ctx(settings), ctx, blob_dev, z, m, self._mark)
+        self._lap("enqueue")
+        arr = self._fetch(point, y, ok)
+        self._lap("fetch_wait")
+        if not arr[-1]:
+            raise BadArgs(MSG_INVALID_BYTES32)
+        pw = 3 * L.FP.nwords
+        proof_pt = C.proj_to_points(arr[:pw].reshape(1, 3, -1))[0]
+        return proof_pt, L.words_to_ints(arr[pw : pw + FR.nwords].reshape(1, -1))[0]
+
+    def msm_g1_lagrange(self, settings, scalars):
+        from ..ops import msm as M
+
+        ctx = self._msm_ctx(settings)
+        if ctx is None:  # tiny presets take the host path
+            return super().msm_g1_lagrange(settings, scalars)
+        return M.msm_fixed_base(ctx, scalars)
+
+    # -- polynomial math (device) ---------------------------------------------
+
+    def _fr_words(self, values):
+        from ..ops import limbs as L
+
+        return L.to_device(L.FR, values, self.device)
+
+    def barycentric_eval(self, settings, evals, x: int) -> int:
+        from ..ops import limbs as L
+        from ..ops import protocol_kernels as pk
+
+        y = pk.barycentric_eval(self._fr_ctx(settings), self._fr_words(evals), self._fr_words([x])[0])
+        return L.words_to_ints(y[None].cpu())[0]
+
+    def quotient_out_of_domain(self, settings, evals, z: int, y: int):
+        from ..ops import limbs as L
+        from ..ops import protocol_kernels as pk
+
+        zy = self._fr_words([z, y])
+        q = pk.quotient_out_of_domain(self._fr_ctx(settings), self._fr_words(evals), zy[0], zy[1])
+        return L.words_to_ints(q.cpu())
+
+    def quotient_in_domain(self, settings, evals, z: int, y: int, m: int):
+        from ..ops import limbs as L
+        from ..ops import protocol_kernels as pk
+
+        zy = self._fr_words([z, y])
+        q = pk.quotient_in_domain(self._fr_ctx(settings), self._fr_words(evals), zy[0], zy[1], m)
+        return L.words_to_ints(q.cpu())

@@ -55,7 +55,7 @@
 
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "curve.cuh"
 
 using namespace kzg;
 
@@ -63,36 +63,6 @@ namespace {
 
 constexpr int N = Fp::N;
 constexpr int kVecs = 9;  // 16-byte vectors per point; 3 per coordinate
-
-struct Elt {
-  uint32_t w[N];
-};
-
-__device__ __forceinline__ Elt mul(const Elt& a, const Elt& b) {
-  Elt r;
-  fp_mont_mul(r.w, a.w, b.w);
-  return r;
-}
-
-__device__ __forceinline__ Elt add(const Elt& a, const Elt& b) {
-  Elt r;
-  fp_add(r.w, a.w, b.w);
-  return r;
-}
-
-__device__ __forceinline__ Elt sub(const Elt& a, const Elt& b) {
-  Elt r;
-  fp_sub(r.w, a.w, b.w);
-  return r;
-}
-
-// b3 v = 12 v by four adds: the canonical value of the product by mont(12)
-// that curve.py takes, at a tenth of its instructions.
-__device__ __forceinline__ Elt times_b3(const Elt& v) {
-  const Elt v2 = add(v, v);
-  const Elt v4 = add(v2, v2);
-  return add(add(v4, v4), v4);
-}
 
 // One coordinate from shared memory.  asm volatile keeps each reload where
 // the formula needs it, so the compiler cannot hold the operand in
@@ -117,19 +87,6 @@ __device__ __forceinline__ void sts(uint4* s, const Elt& v) {
                  "r"(v.w[4 * k]), "r"(v.w[4 * k + 1]), "r"(v.w[4 * k + 2]),
                  "r"(v.w[4 * k + 3])
                  : "memory");
-}
-
-__device__ __forceinline__ Elt ldg(const uint4* __restrict__ g) {
-  Elt r;
-#pragma unroll
-  for (int k = 0; k < 3; k++) {
-    const uint4 v = __ldg(g + k);
-    r.w[4 * k] = v.x;
-    r.w[4 * k + 1] = v.y;
-    r.w[4 * k + 2] = v.z;
-    r.w[4 * k + 3] = v.w;
-  }
-  return r;
 }
 
 // K3.  Thread t adds point pair t of the block's tile; X at vectors 0-2 of

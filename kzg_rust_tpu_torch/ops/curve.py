@@ -11,11 +11,13 @@ On CUDA tensors :func:`proj_add` launches K3 (``csrc/curve_kernels.cu``
 ``kzg_proj_add``, replacing the JAX package's ``pallas_kernels.py:348``
 ``proj_add_pallas``) and :func:`proj_double` K4 (``kzg_proj_double``,
 replacing ``:354`` ``proj_double_pallas``); :func:`proj_double_chain` runs
-K4 ``steps`` times in one launch (``kzg_proj_double_chain``), or they
-raise; on CPU tensors they run the plain versions below, which follow the
-same operation order over the plain field functions.  All give the same
-canonical coordinates as the JAX package's ``curve.proj_add`` /
-``proj_double``.
+K4 ``steps`` times in one launch (``kzg_proj_double_chain``), and
+:func:`proj_add_mixed` runs the complete mixed add (RCB algorithm 8, an
+affine second operand) of the MSM kernel M2 alone (``csrc/msm_kernels.cu``
+``kzg_proj_add_mixed``), or they raise; on CPU tensors they run the plain
+versions below, which follow the same operation order over the plain field
+functions.  All give the same canonical coordinates as the JAX package's
+``curve.proj_add`` / ``proj_double`` / ``proj_add_mixed``.
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ def proj_to_points(arr, mont: bool = True) -> list:
 # ---------------------------------------------------------------------------
 
 
+def point_is_inf(p):
+    return L.is_zero(p[..., 2, :])
+
+
 def point_neg(p):
     y = L.neg_mod(FP, p[..., 1, :])
     return torch.stack([p[..., 0, :], y, p[..., 2, :]], dim=-2)
@@ -101,6 +107,34 @@ def proj_add_plain(p, q):
     t5 = sub(mul(add(x1, z1), add(x2, z2)), add(t0, t2))  # X1Z2 + X2Z1
     three_t0 = add(add(t0, t0), t0)
     bt2 = mul(b3, t2)
+    z3t = add(t1, bt2)
+    t1m = sub(t1, bt2)
+    y3t = mul(b3, t5)
+    x3 = sub(mul(t3, t1m), mul(t4, y3t))
+    y3 = add(mul(y3t, three_t0), mul(t1m, z3t))
+    z3 = add(mul(z3t, t4), mul(three_t0, t3))
+    return torch.stack([x3, y3, z3], dim=-2)
+
+
+def proj_add_mixed_plain(p, q):
+    """Plain version of the mixed add of M2 (``csrc/curve.cuh`` add_mixed):
+    RCB algorithm 8 (a = 0), 11 products plus two by b3, in curve.py's
+    order.  ``q`` is ``[..., 2, 12]`` affine (X2, Y2), Z2 = 1, and must not
+    be the point at infinity; ``p`` may be."""
+    x1, y1, z1 = p.unbind(-2)
+    x2, y2 = q.unbind(-2)
+    mul = lambda u, v: L.mont_mul_plain(FP, u, v)  # noqa: E731
+    add = lambda u, v: L.add_mod_plain(FP, u, v)  # noqa: E731
+    sub = lambda u, v: L.sub_mod_plain(FP, u, v)  # noqa: E731
+    b3 = FP.const(B3_MONT, p.device)
+
+    t0 = mul(x1, x2)
+    t1 = mul(y1, y2)
+    t3 = sub(mul(add(x1, y1), add(x2, y2)), add(t0, t1))
+    t4 = add(mul(y2, z1), y1)  # Y1 + Y2 Z1
+    t5 = add(mul(x2, z1), x1)  # X1 + X2 Z1
+    three_t0 = add(add(t0, t0), t0)
+    bt2 = mul(b3, z1)
     z3t = add(t1, bt2)
     t1m = sub(t1, bt2)
     y3t = mul(b3, t5)
@@ -177,6 +211,22 @@ def proj_add(p, q, out=None):
     n = p.numel() // (3 * FP.nwords)
     if n:
         _build.launch("kzg_proj_add", p.device, p.contiguous(), q.contiguous(), out, n)
+    return out
+
+
+def proj_add_mixed(p, q):
+    """Complete mixed addition of ``[..., 3, 12]`` projective points and
+    ``[..., 2, 12]`` affine points (never infinity) of one batch shape: the
+    add of M2 alone (``kzg_proj_add_mixed``)."""
+    _check_points(p)
+    if q.dtype != torch.int32 or q.shape != p.shape[:-2] + (2, FP.nwords) or q.device != p.device:
+        raise ValueError(f"expected int32 {tuple(p.shape[:-2]) + (2, FP.nwords)} affine points on {p.device}")
+    if p.device.type == "cpu":
+        return proj_add_mixed_plain(p, q)
+    out = _out(p, None)
+    n = p.numel() // (3 * FP.nwords)
+    if n:
+        _build.launch("kzg_proj_add_mixed", p.device, p.contiguous(), q.contiguous(), out, n)
     return out
 
 

@@ -74,3 +74,14 @@ def fr_context_from_jax(n: int, roots_m, roots_m2, inv_n_m, device="cpu"):
 def gen_table_from_jax(table, device="cpu") -> torch.Tensor:
     """The generator window table ``[64, 8, 1, 3, 32]`` -> ``[64, 8, 1, 3, 12]``."""
     return points_from_jax(table, device)
+
+
+def msm_context_from_jax(table, inf_mask, device="cpu"):
+    """A :class:`~.msm.MsmContext` from the JAX package's GLV table
+    ``[26, 16, N, 2, 32]`` (affine Montgomery Fp, the same integers in both
+    packages) and ``inf_mask`` [N], with the port's partial-sum count."""
+    from .msm import MsmContext, default_fold
+
+    inf = torch.from_numpy(np.asarray(inf_mask, dtype=bool).copy()).to(device)
+    n = inf.shape[0]
+    return MsmContext(n, fp_from_jax(table, device), inf, default_fold(n, device))

@@ -253,7 +253,14 @@ def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor):
 def bary_batch(ctx, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """evals [n, B, 8] canonical, xs [B, 8] canonical -> ys [B, 8]
     canonical: y = (x^n - 1)/n * sum_i e_i w_i / (x - w_i).  Callers
-    guarantee every x is out of the domain.
+    guarantee every x is out of the domain."""
+    return bary_batch_inv(ctx, evals, xs)[0]
+
+
+def bary_batch_inv(ctx, evals: torch.Tensor, xs: torch.Tensor):
+    """:func:`bary_batch`, also returning the inverses it made: (ys [B, 8]
+    canonical, inv [n, B, 8] = mont(1 / (x - w_i))), which the prover's
+    out-of-domain quotient reuses.
 
     Form bookkeeping as in the JAX package: the evaluations stay canonical
     (``roots_m2`` carries w R^2, so the two term products land on
@@ -268,4 +275,4 @@ def bary_batch(ctx, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     s = L.from_mont(FR, L.sum_mod(FR, terms))  # canonical sum
     s = mul(s, ctx.inv_n_m)  # canonical x mont -> canonical
     xn = L.mont_pow_const(FR, x_m, ctx.n)
-    return mul(s, L.sub_mod(FR, xn, FR.const("one_mont", xs.device)))
+    return mul(s, L.sub_mod(FR, xn, FR.const("one_mont", xs.device))), inv

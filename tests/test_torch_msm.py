@@ -1,0 +1,211 @@
+"""The port's GLV fixed-base MSM (kzg_rust_tpu_torch.ops.msm and the mixed
+add of ops.curve; the plain versions of M1, M2 and the mixed add on the
+CPU) against the JAX package's ops.msm and ops.curve, exactly.
+
+Fp shares the radix 2^384 across the two packages, so tables and points
+compare as raw words.  The JAX shapes are those tests/test_ops_msm.py
+compiles (24 scalars, a 16-point table), so the persistent compile cache
+usually holds them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import random
+import re
+from gc import collect as collect_garbage
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from kzg_rust_tpu.ops import curve as JC
+from kzg_rust_tpu.ops import limbs as JL
+from kzg_rust_tpu.ops import msm as JM
+from kzg_rust_tpu.ops.fields import FR as JFR
+from kzg_rust_tpu_torch.golden import curve as gc
+from kzg_rust_tpu_torch.golden.field import P, R
+from kzg_rust_tpu_torch.ops import _build
+from kzg_rust_tpu_torch.ops import curve as C
+from kzg_rust_tpu_torch.ops import glv
+from kzg_rust_tpu_torch.ops import jax_state as JS
+from kzg_rust_tpu_torch.ops import limbs as L
+from kzg_rust_tpu_torch.ops import msm as M
+
+rng = random.Random(0x6D5A)
+RR = L.FP.mont_r
+# tests/test_ops_msm.py:21
+EDGE_SCALARS = [0, 1, R - 1, R // 2, (R + 1) // 2, glv.Z2, R - glv.Z2, glv.LAM]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _worker_resources():
+    """The plain versions run many small tensor ops; one intra-op thread per
+    test worker keeps parallel workers from oversubscribing the cores.  At
+    the end the module's compiled JAX programs are dropped and the freed
+    heap goes back to the OS: the suite's workers share one machine's
+    memory, and a worker keeps what it holds into its next file."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    jax.clear_caches()
+    collect_garbage()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc
+    if trim is not None:
+        trim(0)
+
+
+@pytest.fixture(scope="module")
+def points():
+    """16 setup-like points, the last one infinity."""
+    return [gc.g1_mul(gc.G1_GENERATOR, rng.randrange(1, R)) for _ in range(15)] + [None]
+
+
+@pytest.fixture(scope="module")
+def contexts(points):
+    """The JAX package's table (fold 64, as tests/test_ops_msm.py builds it)
+    and the port's, each built once."""
+    return JM.MsmContext.build_from_points(points, fold=64), M.MsmContext.build_from_points(points, "cpu")
+
+
+def _value(digits, i):
+    return sum(int(digits[j, i]) * 32**j for j in range(M.GLV_NUM_WINDOWS))
+
+
+def test_glv_digits_match_jax():
+    """M1's plain version against the JAX device split, digit for digit;
+    the halves recombine to k and stay below 2^128."""
+    scalars = [rng.randrange(R) for _ in range(16)] + EDGE_SCALARS
+    jd1, jd2 = JM.glv_digits_from_limbs(jnp.asarray(JL.ints_to_limbs(JFR.nlimbs, scalars)))
+    got = M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"))
+    assert got.dtype == torch.int8 and got.shape == (2, 26, len(scalars))
+    assert (got[0].numpy() == np.asarray(jd1)).all()
+    assert (got[1].numpy() == np.asarray(jd2)).all()
+    assert got.abs().max() <= 16
+    for i, k in enumerate(scalars):
+        v1, v2 = _value(got[0], i), _value(got[1], i)
+        assert (v1 + v2 * glv.LAM) % R == k
+        assert abs(v1) < 2**128 and abs(v2) < 2**128
+
+
+def test_recode_glv_host_matches_jax():
+    scalars = [rng.randrange(R) for _ in range(6)] + EDGE_SCALARS
+    for got, want in zip(M.recode_glv_host(scalars), JM.recode_glv_host(scalars)):
+        assert (got == want).all()
+
+
+def _proj_rows(pts, seed):
+    """Golden points -> projective Montgomery int rows with a random factor."""
+    r = np.random.default_rng(seed)
+    rows = []
+    for p in pts:
+        lam = (int.from_bytes(r.bytes(56), "little") % (P - 1) + 1) * RR % P
+        rows += [0, lam, 0] if p is None else [p[0] * lam % P, p[1] * lam % P, lam]
+    return rows
+
+
+def test_proj_add_mixed_matches_jax():
+    """The mixed add's plain version against the JAX package's, word for
+    word, with an infinity accumulator, P + P and P + (-P) among the lanes."""
+    base = [gc.g1_mul(gc.G1_GENERATOR, rng.randrange(1, R)) for _ in range(5)]
+    neg = (base[1][0], (-base[1][1]) % P)
+    ps = [base[0], base[1], None, base[2], None, base[3], base[4], base[0]]
+    qs = [base[0], neg, base[2], base[3], base[4], base[1], base[0], base[2]]
+    prow = _proj_rows(ps, 11)
+    qrow = [v * RR % P for q in qs for v in q]
+    p = L.to_device(L.FP, prow, "cpu").reshape(8, 3, 12)
+    q = L.to_device(L.FP, qrow, "cpu").reshape(8, 2, 12)
+    jp = jnp.asarray(JL.ints_to_limbs(32, prow).reshape(8, 3, 32))
+    jq = jnp.asarray(JL.ints_to_limbs(32, qrow).reshape(8, 2, 32))
+    want = np.asarray(JC.proj_add_mixed(jp, jq))
+    got = C.proj_add_mixed(p, q)
+    assert torch.equal(got, JS.points_from_jax(want))
+    assert C.proj_to_points(got) == [gc.g1_add(a, b) for a, b in zip(ps, qs)]
+    inf = C.point_is_inf(got)
+    assert inf.tolist() == list(np.asarray(JC.point_is_inf(jnp.asarray(want))))
+    assert inf.tolist() == [False, True] + [False] * 6
+
+
+def test_table_matches_jax(contexts, points):
+    """The port's table build (K4 chain, K3 multiples, batched inversion)
+    equals the JAX package's word for word, infinity column included, and
+    its entries are d 32^j P."""
+    jctx, ctx = contexts
+    assert ctx.table.shape == (26, 16, 16, 2, 12) and ctx.n == 16
+    assert torch.equal(ctx.table, JS.fp_from_jax(np.asarray(jctx.table)))
+    assert ctx.inf_mask.tolist() == list(np.asarray(jctx.inf_mask)) == [False] * 15 + [True]
+    rinv = pow(RR, -1, P)
+    for j, d, i in ((0, 0, 0), (3, 15, 7), (25, 9, 14)):
+        x, y = (v * rinv % P for v in L.words_to_ints(ctx.table[j, d, i]))
+        assert (x, y) == gc.g1_mul(points[i], (d + 1) * 32**j)
+
+
+def _scalar_cases():
+    return {
+        "random": [rng.randrange(R) for _ in range(16)],
+        "zero": [0] * 16,
+        "one_hot": [0] * 3 + [1] + [0] * 12,
+        "all_r_minus_1": [R - 1] * 16,
+    }
+
+
+@pytest.mark.parametrize("case", ["random", "zero", "one_hot", "all_r_minus_1"])
+def test_msm_fixed_base_on_jax_table(case, contexts, points):
+    """The JAX table carried over (msm_context_from_jax) through the port's
+    msm_fixed_base (host recoding, M2, K3 tree) equals the naive lincomb."""
+    jctx, _ = contexts
+    ctx = JS.msm_context_from_jax(np.asarray(jctx.table), np.asarray(jctx.inf_mask))
+    assert ctx.fold == M.CPU_FOLD
+    scalars = _scalar_cases()[case]
+    got = M.msm_fixed_base(ctx, scalars)
+    assert got == gc.g1_lincomb_naive(points, scalars)
+    if case == "zero":
+        assert got is None
+    if case == "one_hot":
+        assert got == points[3]
+
+
+@pytest.mark.parametrize("fold", [7, 64, 100, 832])
+def test_device_digits_msm(fold, contexts, points):
+    """M1's digits through M2 at several partial-sum counts (ragged last
+    rows, the default, one selection a column): the K3 tree of the partials
+    is the lincomb."""
+    _, ctx = contexts
+    scalars = [rng.randrange(R) for _ in range(15)] + [R - 1]
+    digits = M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"))
+    partials = M.msm_accumulate(ctx.table, ctx.inf_mask, digits, fold)
+    assert partials.shape == (fold, 3, 12)
+    got = C.proj_to_points(C.sum_points(partials)[None])[0]
+    assert got == gc.g1_lincomb_naive(points, scalars)
+
+
+def test_msm_operand_checks(contexts):
+    _, ctx = contexts
+    digits = torch.zeros((2, 26, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="digits"):
+        M.msm_accumulate(ctx.table, ctx.inf_mask, digits.to(torch.int32), 8)
+    with pytest.raises(ValueError, match="fold"):
+        M.msm_accumulate(ctx.table, ctx.inf_mask, digits, 0)
+    with pytest.raises(ValueError, match="mask"):
+        M.msm_accumulate(ctx.table, ctx.inf_mask[:8], digits, 8)
+
+
+def test_kernel_constants_match():
+    """The immediates of csrc/msm_kernels.cu are the Python constants."""
+    text = open(f"{_build.CSRC}/msm_kernels.cu").read()
+
+    def words(name):
+        body = re.search(name + r"_word\(int j\) \{\s*constexpr uint32_t w\[\d+\] = \{([^}]*)\}", text).group(1)
+        return sum(int(w.strip().rstrip("u"), 16) << (32 * k) for k, w in enumerate(body.split(",")))
+
+    assert words("g1c") == glv.G1C
+    assert words("z2") == glv.Z2
+    assert words("z2m1") == glv.Z2 - 1
+    assert words("half_r") == glv.HALF_R_CEIL
+    assert words("beta_mont") == C.BETA_MONT
+    assert words("one_mont") == L.FP.mont_r
+    assert _build.ENTRY_POINTS["kzg_msm_glv_accumulate"][0] == "msm_kernels.cu"
