@@ -9,6 +9,9 @@ Phases, any failure of which exits non-zero without the final line:
    print the build seconds, what ptxas reported, the SASS instructions of
    the Fp and Fr Montgomery product and squaring (where the toolkit has
    cuobjdump), and the card's name and power limit;
+1b. build and load the native C++ host engine (native/kzg_native.cpp, g++
+   -march=native for this machine's CPU) and print its path, ABI version,
+   build seconds and the CPU count; a failed build fails the run;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, exactly, edge lanes included, and time
    both with CUDA events (a kernel bound by bytes on operands the L2 cache
@@ -17,13 +20,22 @@ Phases, any failure of which exits non-zero without the final line:
    same chains as launch sequences of K1 or K2, which are timed too; the
    prover's M1 (GLV digits) and M2 (MSM accumulation) at mainnet width,
    edge scalars and an infinity column included;
+2b. hold the engine against the golden model on this machine's CPU, exactly:
+   SHA-256 against hashlib, the G1 and G2 codecs (invalid encodings
+   included), G1 and G2 multiplies, the G1 lincomb, the pairing (true,
+   false, with infinity) and the barycentric evaluation of four mainnet
+   blobs (also against ``TorchBackend.barycentric_eval`` on the card), each
+   timed beside its golden twin;
 3. drive the verify path, ``Kzg.verify_blob_kzg_proof_batch`` through
    ``TorchBackend()`` on the mainnet setup: the 22 mainnet batch vectors,
    then batches of n = 64 and n = 4096 sampled (numpy seed) from the six
    valid ``verify_blob_kzg_proof`` vectors, with five outcome lanes each
    (valid, swapped proof, non-canonical blob, malformed point, non-subgroup
-   point; the n = 64 lanes cross-checked against the golden backend), the
-   launch counts of one valid batch, stage times and peak memory;
+   point; the n = 64 lanes cross-checked against the golden backend, and
+   the pairing inputs of its valid and swapped batches also put through the
+   pure-Python pairing), the launch counts of one valid batch, stage times,
+   host step times (the pairing in the engine) and peak memory; at n = 4096
+   a device batch beside the engine's threads verifying the same batch;
 3b. drive the prover path through ``TorchBackend()``: build the mainnet
    MSM table on the card (time, bytes, peak memory), run every mainnet
    vector of ``blob_to_kzg_commitment``, ``compute_kzg_proof``,
@@ -31,6 +43,11 @@ Phases, any failure of which exits non-zero without the final line:
    proofs (z = the first and the last root) checked by y and by
    ``verify_kzg_proof``, the launch counts of one commit and one proof (M1
    and M2 once each), host and device times;
+3c. host placement on the same machine: with ``KZG_TORCH_EVAL=host`` the 22
+   batch vectors and the five lanes at both n, in the engine's fused
+   context with no launch; with ``KZG_TORCH_PROVER=host`` (and
+   ``KZG_TORCH_EVAL=host``) the 94 single-blob vectors; host-clock times
+   (median of 3) printed beside the card's on one line;
 4. check that every kernel of the path launched in the n = 64 batch, one
    commit or one proof, that at both n the window-base chain and the square
    root were one launch each and the Fermat inversion and x^4096 one each
@@ -87,6 +104,9 @@ SHAPES = {
     "double": (8192, 128),
     "msm": 4096,
 }
+# Launches in one valid batch at n = 64 and 4096, one commit and one proof
+# with z out of the domain.
+PATH_LAUNCHES = {"n64": 119, "n4096": 131, "commit": 19, "proof": 70}
 # The mainnet vectors of the prover phase, by kind, and how many each has.
 PROVER_VECTORS = {
     "blob_to_kzg_commitment": 10,
@@ -687,6 +707,113 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the native host engine against the golden model
+# ---------------------------------------------------------------------------
+
+# Encodings each decoder must refuse or read as the golden model does.
+G1_ENCODINGS = [
+    b"\x00" * 48,
+    b"\xc0\x01" + b"\x00" * 46,
+    b"\xff" * 48,
+    b"\x9f" + b"\xff" * 47,
+    b"\x80" + b"\x00" * 47,
+    b"\x11" * 48,
+]
+G2_ENCODINGS = [
+    b"\x00" * 96,
+    b"\xc0\x01" + b"\x00" * 94,
+    b"\xe0" + b"\x00" * 95,
+    b"\x9f" + b"\xff" * 95,
+    b"\x80" + b"\x00" * 95,
+    b"\x80" + b"\x00" * 46 + b"\x01" + b"\x00" * 48,
+    b"\x12" * 96,
+]
+
+
+def check_engine(backend, settings) -> dict:
+    """Every wrapper of the engine against the golden model on seeded
+    inputs, exactly; the median host milliseconds of each side."""
+    import hashlib
+
+    from kzg_rust_tpu_torch import hostcrypto, native
+    from kzg_rust_tpu_torch.backends.golden_backend import GoldenBackend
+    from kzg_rust_tpu_torch.errors import BadArgs
+    from kzg_rust_tpu_torch.golden import curve as gc
+    from kzg_rust_tpu_torch.golden import pairing as gp
+    from kzg_rust_tpu_torch.golden.field import R
+
+    prng = random.Random(SEED)
+    report = {}
+
+    def same(name, engine, golden, inputs):
+        """``engine(x) == golden(x)`` for every x, both timed (host clock)."""
+        times = {"engine": [], "golden": []}
+        for x in inputs:
+            got = {}
+            for side, fn in (("engine", engine), ("golden", golden)):
+                t = time.perf_counter()
+                try:
+                    got[side] = fn(x)
+                except BadArgs as e:  # the class is compared; the engine has one G1 message
+                    got[side] = ("BadArgs", str(e) if name.startswith("g2") else "")
+                times[side].append((time.perf_counter() - t) * 1e3)
+            if got["engine"] != got["golden"]:
+                raise AssertionError(f"engine {name}: {got['engine']!r} != golden {got['golden']!r} on {x!r}")
+        row = {"cases": len(inputs), **{f"{side}_ms": statistics.median(v) for side, v in times.items()}}
+        report[name] = row
+        log(f"engine: {name}: equal to golden on {len(inputs)} inputs; median {row['engine_ms']:.4f} ms against golden {row['golden_ms']:.4f} ms")
+
+    data = prng.randbytes(131232)
+    same("sha256", lambda n: native.sha256(data[:n]), lambda n: hashlib.sha256(data[:n]).digest(), [0, 1, 55, 56, 63, 64, 65, 127, 128, 1000, 131232])
+    g1 = [gc.g1_mul(gc.G1_GENERATOR, prng.randrange(1, R)) for _ in range(8)] + [None]
+    g2 = [gc.g2_mul(gc.G2_GENERATOR, prng.randrange(1, R)) for _ in range(3)] + [None] + list(settings.g2_values[:4])
+    same("g1_compress", native.g1_compress, gc.g1_compress, g1)
+    same("g1_uncompress", native.g1_uncompress, gc.g1_uncompress, [gc.g1_compress(p) for p in g1] + G1_ENCODINGS)
+    same("g1_uncompress_batch", native.g1_uncompress_batch, lambda xs: [gc.g1_uncompress(x) for x in xs], [[gc.g1_compress(p) for p in g1]])
+    same("g2_uncompress", native.g2_uncompress, gc.g2_uncompress, [gc.g2_compress(q) for q in g2] + G2_ENCODINGS)
+    same("g1_in_subgroup", native.g1_in_subgroup, gc.g1_in_subgroup, g1 + [gc.g1_uncompress(out_of_subgroup_compressed(prng))])
+    scalars = [0, 1, R - 1, prng.randrange(R), prng.randrange(R)]
+    same("g1_mul", lambda a: native.g1_mul(*a), lambda a: gc.g1_mul(*a), [(p, k) for p in g1[:3] + [None] for k in scalars])
+    same("g2_mul", lambda a: native.g2_mul(*a), lambda a: gc.g2_mul(*a), [(q, k) for q in g2[:2] for k in scalars[1:4]])
+    same("g1_add", lambda a: native.g1_add(*a), lambda a: gc.g1_add(*a), [(g1[0], g1[1]), (g1[0], g1[0]), (g1[0], gc.g1_neg(g1[0])), (None, g1[2])])
+    same("g2_add", lambda a: native.g2_add(*a), lambda a: gc.g2_add(*a), [(g2[0], g2[1]), (g2[0], g2[0]), (g2[3], g2[2])])
+    lin = [(g1 + [gc.g1_mul(gc.G1_GENERATOR, k) for k in range(2, 9)], [prng.randrange(R) for _ in range(15)] + [R - 1]), ([g1[0]], [5]), ([], [])]
+    same("g1_lincomb_naive", lambda a: native.g1_lincomb_naive(*a), lambda a: gc.g1_lincomb_naive(*a), lin)
+    a, b = prng.randrange(1, R), prng.randrange(1, R)
+    ap, bq, abp = gc.g1_mul(gc.G1_GENERATOR, a), gc.g2_mul(gc.G2_GENERATOR, b), gc.g1_mul(gc.G1_GENERATOR, a * b % R)
+    pairs = [
+        (abp, gc.G2_GENERATOR, ap, bq),  # true
+        (ap, gc.G2_GENERATOR, ap, bq),  # false
+        (None, gc.G2_GENERATOR, None, gc.G2_GENERATOR),
+        (ap, gc.G2_GENERATOR, None, gc.G2_GENERATOR),
+        (ap, None, ap, gc.G2_GENERATOR),
+    ]
+    if [gp.pairings_verify(*x) for x in pairs[:2]] != [True, False]:
+        raise AssertionError("golden pairing: the bilinear pair is not true, or the other not false")
+    same("pairings_verify", lambda x: native.pairings_verify(*x), lambda x: gp.pairings_verify(*x), pairs)
+
+    # The barycentric evaluation of four mainnet blobs: the engine's context
+    # (one call for all four), the golden backend and the card.
+    n = settings.preset.field_elements_per_blob
+    evals = [[prng.randrange(R) for _ in range(n)] for _ in range(4)]
+    xs = [prng.randrange(R) for _ in evals]
+    ctx = hostcrypto.bary_ctx(settings.roots_of_unity)
+    t = time.perf_counter()
+    ys = ctx.eval_batch(b"".join(e.to_bytes(32, "big") for ev in evals for e in ev), len(evals), xs)
+    engine_ms = (time.perf_counter() - t) * 1e3
+    golden = GoldenBackend()
+    t = time.perf_counter()
+    want = [golden.barycentric_eval(settings, ev, x) for ev, x in zip(evals, xs)]
+    golden_ms = (time.perf_counter() - t) * 1e3
+    card = [backend.barycentric_eval(settings, ev, x) for ev, x in zip(evals, xs)]
+    if not ys == want == card:
+        raise AssertionError("engine BaryCtx, the golden backend and TorchBackend.barycentric_eval disagree")
+    report["bary_ctx"] = {"cases": len(evals), "engine_ms": engine_ms / len(evals), "golden_ms": golden_ms / len(evals)}
+    log(f"engine: BaryCtx on {len(evals)} mainnet blobs: equal to golden and to the card's barycentric_eval; {engine_ms / len(evals):.3f} ms a blob against golden {golden_ms / len(evals):.1f} ms")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -720,7 +847,10 @@ def out_of_subgroup_compressed(rng) -> bytes:
             return gc.g1_compress((x, y))
 
 
-def main_path(backend, settings) -> dict:
+def main_path(backend, settings, host: bool = False) -> dict:
+    """The verify path on ``backend``: on the card, or with ``host`` in the
+    engine's fused context (``KZG_TORCH_EVAL=host`` set by the caller),
+    where no kernel may launch."""
     import numpy as np
     import torch
 
@@ -730,12 +860,14 @@ def main_path(backend, settings) -> dict:
     from kzg_rust_tpu_torch.messages import (
         MSG_INVALID_BYTES32,
         MSG_INVALID_COMPRESSED_G1,
+        MSG_MALFORMED_COMMITMENT,
         MSG_NOT_IN_SUBGROUP,
     )
     from kzg_rust_tpu_torch.ops import _build
 
     golden = GoldenBackend()
     vec = os.path.join(ROOT, "tests", "vectors")
+    where = "host placement" if host else "main"
 
     # The 22 mainnet batch vectors.
     files = sorted(glob.glob(os.path.join(vec, "verify_blob_kzg_proof_batch", "*", "*", "data.yaml")))
@@ -755,7 +887,7 @@ def main_path(backend, settings) -> dict:
             got = None
         if got != expected:
             raise AssertionError(f"{f}: got {got}, expected {expected}")
-    log(f"main: all {len(files)} mainnet verify_blob_kzg_proof_batch vectors pass")
+    log(f"{where}: all {len(files)} mainnet verify_blob_kzg_proof_batch vectors pass")
 
     # Valid triples: the six correct-proof verify_blob_kzg_proof vectors.
     triples = []
@@ -794,10 +926,12 @@ def main_path(backend, settings) -> dict:
             "valid": ((blobs, cs, ps), True),
             "swapped_proof": ((blobs, cs, swapped), False),
             "noncanonical_blob": ((noncanon, cs, ps), MSG_INVALID_BYTES32),
-            "malformed_point": ((blobs, malformed, ps), MSG_INVALID_COMPRESSED_G1),
+            # The engine names the point (as the JAX package's host path does).
+            "malformed_point": ((blobs, malformed, ps), MSG_MALFORMED_COMMITMENT if host else MSG_INVALID_COMPRESSED_G1),
             "non_subgroup_point": ((blobs, nonsub, ps), MSG_NOT_IN_SUBGROUP),
         }
-        backends = [("torch", backend)] + ([("golden", golden)] if n == small else [])
+        cross = n == small and not host
+        backends = [("torch", backend)] + ([("golden", golden)] if cross else [])
         for lane, (args, expect) in lanes.items():
             for bname, be in backends:
                 try:
@@ -809,9 +943,11 @@ def main_path(backend, settings) -> dict:
                 else:  # the golden path raises the same class from its own decoder
                     ok = isinstance(outcome, str) and (expect in outcome or bname == "golden")
                 if not ok:
-                    raise AssertionError(f"n={n} lane {lane} on {bname}: got {outcome!r}, expected {expect!r}")
-            report["lanes"][f"{n}/{lane}"] = "ok" + (" (golden agrees)" if n == small else "")
-        log(f"main: n={n}: the five outcome lanes are right" + (" and agree with the golden backend" if n == small else ""))
+                    raise AssertionError(f"{where}: n={n} lane {lane} on {bname}: got {outcome!r}, expected {expect!r}")
+            report["lanes"][f"{n}/{lane}"] = "ok" + (" (golden agrees)" if cross else "")
+        log(f"{where}: n={n}: the five outcome lanes are right" + (" and agree with the golden backend" if cross else ""))
+        if cross:
+            report["golden_pairing"] = golden_pairing_lane(backend, settings, lanes)
 
         # Launch counts of one valid batch: counts set to 0 just before, read just after.
         _build.reset_launches()
@@ -819,39 +955,129 @@ def main_path(backend, settings) -> dict:
         torch.cuda.synchronize()
         report["launches"][n] = dict(_build.LAUNCHES)
         if valid is not True:
-            raise AssertionError(f"n={n}: the valid batch did not verify")
-        log(f"main: n={n}: launches in one valid batch: {json.dumps(report['launches'][n])}")
+            raise AssertionError(f"{where}: n={n}: the valid batch did not verify")
+        if host and any(report["launches"][n].values()):
+            raise AssertionError(f"host placement launched kernels: {report['launches'][n]}")
+        log(f"{where}: n={n}: launches in one valid batch: {json.dumps({e: c for e, c in report['launches'][n].items() if c})}")
 
         # Stage times and end to end, median of 3 runs.
-        if n == large:
+        if n == large and not host:
             torch.cuda.reset_peak_memory_stats()
-        stages, e2e, host = {s: [] for s in ("stage1", "bary", "stage2")}, [], {}
+        stages, e2e, steps = {s: [] for s in ("stage1", "bary", "stage2")}, [], {}
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
             valid = Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
             e2e.append((time.perf_counter() - t) * 1e3)
             if valid is not True:
-                raise AssertionError(f"n={n}: the valid batch did not verify")
-            for s, v in backend.stage_ms().items():
-                stages[s].append(v)
-            for s, v in backend.host_ms.items():
-                host.setdefault(s, []).append(v)
+                raise AssertionError(f"{where}: n={n}: the valid batch did not verify")
+            if not host:
+                for s, v in backend.stage_ms().items():
+                    stages[s].append(v)
+                for s, v in backend.host_ms.items():
+                    steps.setdefault(s, []).append(v)
+        report["e2e_ms"][n] = statistics.median(e2e)
+        report["blobs_per_s"][n] = n / (report["e2e_ms"][n] / 1e3)
+        if host:
+            log(f"{where}: n={n}: end to end {report['e2e_ms'][n]:.1f} ms = {report['blobs_per_s'][n]:.1f} blobs/s (host clock, median of 3)")
+            continue
         if n == large:
             report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            report["beside_engine_threads"] = beside_engine_threads(backend, settings, lanes)
         report["stage_ms"][n] = {s: statistics.median(v) for s, v in stages.items()}
-        report["e2e_ms"][n] = statistics.median(e2e)
-        report["host_ms"][n] = {s: statistics.median(v) for s, v in host.items()}
-        report["blobs_per_s"][n] = n / (report["e2e_ms"][n] / 1e3)
+        report["host_ms"][n] = {s: statistics.median(v) for s, v in steps.items()}
         log(
             f"main: n={n}: stage1 {report['stage_ms'][n]['stage1']:.2f} ms, bary "
             f"{report['stage_ms'][n]['bary']:.2f} ms, stage2 {report['stage_ms'][n]['stage2']:.2f} ms "
             f"(CUDA events, median of 3); end to end {report['e2e_ms'][n]:.1f} ms = "
             f"{report['blobs_per_s'][n]:.1f} blobs/s (host clock, median of 3)"
         )
-        log(f"main: n={n}: host ms between steps (median of 3): {json.dumps(report['host_ms'][n])}")
-    log(f"main: peak device memory over the n={large} runs: {report['peak_mem_bytes']} bytes")
+        log(f"main: n={n}: host ms between steps (median of 3; the pairing in the engine): {json.dumps(report['host_ms'][n])}")
+    if not host:
+        log(f"main: peak device memory over the n={large} runs: {report['peak_mem_bytes']} bytes")
     return report
+
+
+def golden_pairing_lane(backend, settings, lanes) -> dict:
+    """The valid and swapped-proof batches on the card, with the pairing
+    inputs the backend hands the engine put through the pure-Python pairing
+    too: the same answer, and both times (host clock)."""
+    from kzg_rust_tpu_torch import Kzg
+    from kzg_rust_tpu_torch.golden import pairing as gp
+
+    seen = []
+    engine = backend.pairings_verify
+
+    def recording(*args):
+        t = time.perf_counter()
+        ok = engine(*args)
+        seen.append((args, ok, (time.perf_counter() - t) * 1e3))
+        return ok
+
+    backend.pairings_verify = recording
+    try:
+        for lane in ("valid", "swapped_proof"):
+            args, expect = lanes[lane]
+            if Kzg.verify_blob_kzg_proof_batch(*args, settings, backend) is not expect:
+                raise AssertionError(f"golden-pairing lane {lane}: the batch did not give {expect}")
+    finally:
+        del backend.pairings_verify
+    report = {"engine_ms": [], "golden_ms": [], "results": []}
+    for args, ok, ms in seen:
+        t = time.perf_counter()
+        want = gp.pairings_verify(*args)
+        report["golden_ms"].append((time.perf_counter() - t) * 1e3)
+        report["engine_ms"].append(ms)
+        report["results"].append(ok)
+        if want is not ok:
+            raise AssertionError(f"the engine's pairing gave {ok}, the pure-Python pairing {want}")
+    if report["results"] != [True, False]:
+        raise AssertionError(f"golden-pairing lane: pairings {report['results']}, expected [True, False]")
+    log(f"main: n={BATCH_SIZES[0]}: the pairing inputs of the valid and swapped batches give {report['results']} in the engine ({report['engine_ms'][0]:.2f} / {report['engine_ms'][1]:.2f} ms) and in the pure-Python pairing ({report['golden_ms'][0]:.1f} / {report['golden_ms'][1]:.1f} ms)")
+    return report
+
+
+def beside_engine_threads(backend, settings, lanes) -> dict:
+    """The valid and swapped-proof batches on the card (the host hashing in
+    the port's SHA-256 pool) while other threads verify them in the engine's
+    fused context (its own threads, the GIL dropped): every answer right."""
+    import threading
+
+    from kzg_rust_tpu_torch import Kzg
+
+    ctx = backend._verify_native_ctx(settings)
+    runs = {lane: lanes[lane] for lane in ("valid", "swapped_proof")}
+    got, errors, stop = [], [], threading.Event()
+
+    def engine_loop(lane):
+        (blobs, cs, ps), _ = runs[lane]
+        comms, proofs = b"".join(bytes(c) for c in cs), b"".join(bytes(p) for p in ps)
+        try:
+            while not stop.is_set():
+                got.append((lane, ctx.verify_scatter(blobs, len(blobs), comms, proofs)))
+        except Exception as e:  # reported after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=engine_loop, args=(lane,)) for lane in runs]
+    for t in threads:
+        t.start()
+    try:
+        card = []
+        for _ in range(2):
+            for lane, (args, expect) in runs.items():
+                card.append((lane, Kzg.verify_blob_kzg_proof_batch(*args, settings, backend)))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"engine threads beside the card: alive {[t.is_alive() for t in threads]}, errors {errors}")
+    want = {lane: expect for lane, (_, expect) in runs.items()}
+    wrong = [(lane, ok) for lane, ok in card + got if ok is not want[lane]]
+    if wrong or not got:
+        raise AssertionError(f"batches beside the engine's threads: wrong answers {wrong[:4]}, {len(got)} engine runs")
+    log(f"main: n={len(runs['valid'][0][0])}: {len(card)} card batches beside {len(got)} engine verifications of the same batches on {len(threads)} threads: every answer right")
+    return {"card_batches": len(card), "engine_batches": len(got)}
 
 
 # ---------------------------------------------------------------------------
@@ -859,13 +1085,121 @@ def main_path(backend, settings) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def prover_vectors(backend, settings, where: str) -> dict:
+    """Every mainnet vector of the four single-blob calls; kind -> count."""
+    from kzg_rust_tpu_torch import Blob, Bytes32, Bytes48, Kzg, KzgError
+
+    vec = os.path.join(ROOT, "tests", "vectors")
+
+    def hexed(x) -> str:
+        return "0x" + bytes(x).hex()
+
+    calls = {
+        "blob_to_kzg_commitment": lambda f: hexed(Kzg.blob_to_kzg_commitment(Blob.from_hex(f["blob"]), settings, backend)),
+        "compute_kzg_proof": lambda f: [hexed(x) for x in Kzg.compute_kzg_proof(Blob.from_hex(f["blob"]), Bytes32.from_hex(f["z"]), settings, backend)],
+        "compute_blob_kzg_proof": lambda f: hexed(Kzg.compute_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), settings, backend)),
+        "verify_blob_kzg_proof": lambda f: Kzg.verify_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), Bytes48.from_hex(f["proof"]), settings, backend),
+    }
+    counts = {}
+    for kind, count in PROVER_VECTORS.items():
+        files = sorted(glob.glob(os.path.join(vec, kind, "*", "*", "data.yaml")))
+        if len(files) != count:
+            raise AssertionError(f"expected {count} {kind} vectors, found {len(files)}")
+        for f in files:
+            inp, expected = read_vector(f)
+            try:
+                got = calls[kind](inp)
+            except KzgError:
+                got = None
+            if got != expected:
+                raise AssertionError(f"{where}: {f}: got {got}, expected {expected}")
+        counts[kind] = count
+        log(f"{where}: all {count} mainnet {kind} vectors pass")
+    return counts
+
+
+def prover_blob(settings):
+    """The blob of a valid ``blob_to_kzg_commitment`` vector with the most
+    distinct elements, and its commitment."""
+    from kzg_rust_tpu_torch import Blob, Bytes48
+
+    files = sorted(glob.glob(os.path.join(ROOT, "tests", "vectors", "blob_to_kzg_commitment", "*", "*_valid_*", "data.yaml")))
+    cases = [read_vector(f) for f in files]
+    n = settings.preset.field_elements_per_blob
+    inp, commitment = max(cases, key=lambda c: len(set(bytes.fromhex(c[0]["blob"][2:])[i : i + 32] for i in range(0, n * 32, 32))))
+    return Blob.from_hex(inp["blob"]), Bytes48.from_hex(commitment)
+
+
+def prover_calls(backend, settings, blob, commitment) -> dict:
+    """The timed single-blob calls: a commit, a proof with z out of the
+    domain and at roots[7], a blob proof, and the blob proof's verification."""
+    from kzg_rust_tpu_torch import Bytes32, Bytes48, Kzg
+
+    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
+    z_in = Bytes32(settings.roots_of_unity[7].to_bytes(32, "big"))
+    calls = {
+        "commit": lambda: Kzg.blob_to_kzg_commitment(blob, settings, backend),
+        "proof": lambda: Kzg.compute_kzg_proof(blob, z_out, settings, backend),
+        "proof_in_domain": lambda: Kzg.compute_kzg_proof(blob, z_in, settings, backend),
+        "blob_proof": lambda: Kzg.compute_blob_kzg_proof(blob, commitment, settings, backend),
+    }
+    blob_proof = Bytes48(bytes(calls["blob_proof"]()))
+    calls["verify_blob"] = lambda: Kzg.verify_blob_kzg_proof(blob, commitment, blob_proof, settings, backend)
+    if calls["verify_blob"]() is not True:
+        raise AssertionError("verify_blob_kzg_proof rejects the blob proof the prover made")
+    return calls
+
+
+def verify_blob_steps(backend, settings, blob, commitment, proof) -> dict:
+    """``verify_blob_kzg_proof`` on the card as the protocol runs it, step
+    by step: host-clock milliseconds of each (median of 3, the card
+    synchronised after each)."""
+    import torch
+
+    from kzg_rust_tpu_torch import protocol
+    from kzg_rust_tpu_torch.golden import curve as gc
+    from kzg_rust_tpu_torch.utils import bls_serde as serde
+
+    c = serde.bytes_to_kzg_commitment(commitment)
+    evals = protocol.blob_to_polynomial(settings, blob)
+    z = serde.challenge_hash(settings.preset, blob, commitment)
+    y = protocol.evaluate_polynomial_in_evaluation_form(settings, evals, z, backend)
+    pt = serde.bytes_to_kzg_proof(proof)
+    x_g2 = backend.g2_mul(gc.G2_GENERATOR, z)
+    steps = {
+        "decode_and_check_commitment": lambda: serde.bytes_to_kzg_commitment(commitment),
+        "blob_to_polynomial": lambda: protocol.blob_to_polynomial(settings, blob),
+        "challenge": lambda: serde.challenge_hash(settings.preset, blob, commitment),
+        "evaluation_upload": lambda: backend._fr_words(evals),
+        "evaluation": lambda: protocol.evaluate_polynomial_in_evaluation_form(settings, evals, z, backend),
+        "decode_and_check_proof": lambda: serde.bytes_to_kzg_proof(proof),
+        "g2_mul": lambda: backend.g2_mul(gc.G2_GENERATOR, z),
+        "g1_mul": lambda: backend.g1_mul(gc.G1_GENERATOR, y),
+        "pairing": lambda: backend.pairings_verify(c, gc.G2_GENERATOR, pt, x_g2),
+        "pairing_equation": lambda: protocol.verify_kzg_proof_impl(settings, c, z, y, pt, backend),
+    }
+    if protocol.verify_kzg_proof_impl(settings, c, z, y, pt, backend) is not True:
+        raise AssertionError("verify_blob_kzg_proof steps: the pairing equation does not hold")
+    out = {}
+    for name, fn in steps.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
 def prover_path(backend, settings) -> dict:
     import torch
 
-    from kzg_rust_tpu_torch import Blob, Bytes32, Bytes48, Kzg, KzgError
+    from kzg_rust_tpu_torch import Bytes32, Kzg
     from kzg_rust_tpu_torch.ops import _build
 
-    report = {"launches": {}, "host_ms": {}, "stage_ms": {}, "vectors": {}}
+    report = {"launches": {}, "host_ms": {}, "stage_ms": {}}
 
     # The MSM table, built at the backend's first use.
     torch.cuda.synchronize()
@@ -888,60 +1222,25 @@ def prover_path(backend, settings) -> dict:
     }
     log(f"prover: MSM table {report['table']['shape']} ({report['table']['bytes']} bytes) built in {report['table']['host_ms']:.1f} ms host clock, {report['table']['device_ms']:.1f} ms between CUDA events; peak {report['table']['peak_mem_bytes']} bytes ({report['table']['peak_above_before_bytes']} above what was allocated before); M2 takes {ctx.fold} partial sums")
 
-    # Every mainnet vector of the four calls.
-    vec = os.path.join(ROOT, "tests", "vectors")
-
-    def hexed(x) -> str:
-        return "0x" + bytes(x).hex()
-
-    calls = {
-        "blob_to_kzg_commitment": lambda f: hexed(Kzg.blob_to_kzg_commitment(Blob.from_hex(f["blob"]), settings, backend)),
-        "compute_kzg_proof": lambda f: [hexed(x) for x in Kzg.compute_kzg_proof(Blob.from_hex(f["blob"]), Bytes32.from_hex(f["z"]), settings, backend)],
-        "compute_blob_kzg_proof": lambda f: hexed(Kzg.compute_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), settings, backend)),
-        "verify_blob_kzg_proof": lambda f: Kzg.verify_blob_kzg_proof(Blob.from_hex(f["blob"]), Bytes48.from_hex(f["commitment"]), Bytes48.from_hex(f["proof"]), settings, backend),
-    }
-    for kind, count in PROVER_VECTORS.items():
-        files = sorted(glob.glob(os.path.join(vec, kind, "*", "*", "data.yaml")))
-        if len(files) != count:
-            raise AssertionError(f"expected {count} {kind} vectors, found {len(files)}")
-        for f in files:
-            inp, expected = read_vector(f)
-            try:
-                got = calls[kind](inp)
-            except KzgError:
-                got = None
-            if got != expected:
-                raise AssertionError(f"{f}: got {got}, expected {expected}")
-        report["vectors"][kind] = count
-        log(f"prover: all {count} mainnet {kind} vectors pass")
+    report["vectors"] = prover_vectors(backend, settings, "prover")
 
     # Two in-domain proofs of a blob with distinct elements: y is the blob's
     # element at the root, and the proof verifies.
-    files = sorted(glob.glob(os.path.join(vec, "blob_to_kzg_commitment", "*", "*_valid_*", "data.yaml")))
-    cases = [read_vector(f) for f in files]
-    inp, commitment = max(cases, key=lambda c: len(set(bytes.fromhex(c[0]["blob"][2:])[i : i + 32] for i in range(0, 4096 * 32, 32))))
-    blob = Blob.from_hex(inp["blob"])
+    blob, commitment = prover_blob(settings)
     n = settings.preset.field_elements_per_blob
     for m in (0, n - 1):
         z = Bytes32(settings.roots_of_unity[m].to_bytes(32, "big"))
         proof, y = Kzg.compute_kzg_proof(blob, z, settings, backend)
         if bytes(y) != bytes(blob)[32 * m : 32 * m + 32]:
             raise AssertionError(f"in-domain z = roots[{m}]: y is not the blob's element")
-        if Kzg.verify_kzg_proof(Bytes48.from_hex(commitment), z, y, proof, settings, backend) is not True:
+        if Kzg.verify_kzg_proof(commitment, z, y, proof, settings, backend) is not True:
             raise AssertionError(f"in-domain z = roots[{m}]: the proof does not verify")
         report.setdefault("in_domain", []).append(m)
     log(f"prover: in-domain proofs at roots[0] and roots[{n - 1}]: y is the blob's element and verify_kzg_proof accepts")
 
     # Launch counts of one commit and one proof: counts set to 0 just
     # before, read just after.  M1 and M2 once per MSM.
-    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
-    commitment = Bytes48(bytes(Kzg.blob_to_kzg_commitment(blob, settings, backend)))
-    entry = {
-        "commit": lambda: Kzg.blob_to_kzg_commitment(blob, settings, backend),
-        "proof": lambda: Kzg.compute_kzg_proof(blob, z_out, settings, backend),
-        "proof_in_domain": lambda: Kzg.compute_kzg_proof(blob, Bytes32(settings.roots_of_unity[7].to_bytes(32, "big")), settings, backend),
-        "blob_proof": lambda: Kzg.compute_blob_kzg_proof(blob, commitment, settings, backend),
-    }
+    entry = prover_calls(backend, settings, blob, commitment)
     for name in ("commit", "proof"):
         _build.reset_launches()
         entry[name]()
@@ -956,10 +1255,6 @@ def prover_path(backend, settings) -> dict:
     # device milliseconds of the parts of a commit and a proof (CUDA events
     # around each part, median of 3; a part's time includes any wait for
     # the host to enqueue it).
-    blob_proof = Bytes48(bytes(entry["blob_proof"]()))
-    entry["verify_blob"] = lambda: Kzg.verify_blob_kzg_proof(blob, commitment, blob_proof, settings, backend)
-    if entry["verify_blob"]() is not True:
-        raise AssertionError("verify_blob_kzg_proof rejects the blob proof the prover made")
     report["host_steps_ms"] = {}
     for name, fn in entry.items():
         times, stages, steps = [], {}, {}
@@ -982,11 +1277,14 @@ def prover_path(backend, settings) -> dict:
             f"(CUDA events, median of 3): {json.dumps(report['stage_ms'].get(name, {}))}; host ms between the backend's steps: "
             f"{json.dumps(report['host_steps_ms'].get(name, {}))}"
         )
+    report["verify_blob_steps_ms"] = verify_blob_steps(backend, settings, blob, commitment, bytes(entry["blob_proof"]()))
+    log(f"prover: verify_blob_kzg_proof on the card, its steps alone (host clock, median of 3): {json.dumps(report['verify_blob_steps_ms'])}")
     # The host path the port replaces, once each on this machine's CPU: the
     # golden Pippenger and the host quotient loop.
     from kzg_rust_tpu_torch.backends.golden_backend import GoldenBackend
 
     golden = GoldenBackend()
+    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
     for name, fn in (
         ("commit", lambda: Kzg.blob_to_kzg_commitment(blob, settings, golden)),
         ("proof", lambda: Kzg.compute_kzg_proof(blob, z_out, settings, golden)),
@@ -997,6 +1295,49 @@ def prover_path(backend, settings) -> dict:
         if want != entry[name]():
             raise AssertionError(f"{name}: the card and the golden backend disagree")
     log(f"prover: the golden host path, once: commit {report['host_ms']['golden_commit']:.0f} ms, proof {report['host_ms']['golden_proof']:.0f} ms (host clock), the same bytes")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: host placement
+# ---------------------------------------------------------------------------
+
+
+def host_placement(backend, settings) -> dict:
+    """The verify path with ``KZG_TORCH_EVAL=host``, then the single-blob
+    calls with ``KZG_TORCH_PROVER=host`` and ``KZG_TORCH_EVAL=host``, on the
+    same backend: every vector and lane right, no kernel launched, each
+    call's host-clock time (median of 3) beside the card's."""
+    from kzg_rust_tpu_torch.ops import _build
+
+    report = {}
+    os.environ["KZG_TORCH_EVAL"] = "host"
+    try:
+        report["verify"] = main_path(backend, settings, host=True)
+    finally:
+        del os.environ["KZG_TORCH_EVAL"]
+
+    blob, commitment = prover_blob(settings)
+    card = {name: fn() for name, fn in prover_calls(backend, settings, blob, commitment).items()}
+    os.environ.update(KZG_TORCH_EVAL="host", KZG_TORCH_PROVER="host")
+    try:
+        _build.reset_launches()
+        report["vectors"] = prover_vectors(backend, settings, "host placement")
+        report["host_ms"] = {}
+        for name, fn in prover_calls(backend, settings, blob, commitment).items():
+            if fn() != card[name]:
+                raise AssertionError(f"host placement: {name} disagrees with the card")
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t) * 1e3)
+            report["host_ms"][name] = statistics.median(times)
+        if any(_build.LAUNCHES.values()):
+            raise AssertionError(f"host placement launched kernels: {_build.LAUNCHES}")
+    finally:
+        del os.environ["KZG_TORCH_EVAL"], os.environ["KZG_TORCH_PROVER"]
+    log(f"host placement: the prover calls give the card's bytes, with no launch; host clock, median of 3: {json.dumps(report['host_ms'])}")
     return report
 
 
@@ -1051,6 +1392,16 @@ def main() -> int:
         )
     card = nvidia_smi("name,power.limit")
     log(card)
+
+    # Phase 1b: the native host engine, built for this machine's CPU.
+    from kzg_rust_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.require()
+    log(
+        f"engine: {native.BUILD_INFO['path']} loaded in {time.perf_counter() - t0:.1f} s "
+        f"(build {native.BUILD_INFO['seconds']:.1f} s), ABI {lib.kzg_native_abi_version()}, {os.cpu_count()} CPUs"
+    )
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     log(f"bounds: {sms} SMs at the max SM clock {clock_mhz:.0f} MHz, {IMAD_PER_CLOCK_PER_SM} IMAD/clock/SM, {HBM_BYTES_PER_S / 1e12} TB/s")
@@ -1058,7 +1409,8 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     rows, every = check_kernels(device, clock_mhz * 1e6, sms)
 
-    # Phase 3: the verify path, then (3b) the prover path, on one backend.
+    # Phase 2b: the engine against golden; phase 3: the verify path, then
+    # (3b) the prover path, then (3c) both under host placement, on one backend.
     from kzg_rust_tpu_torch import Kzg
     from kzg_rust_tpu_torch.backends.torch_backend import TorchBackend
 
@@ -1066,8 +1418,10 @@ def main() -> int:
     settings = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup.txt"))
     log(f"main: mainnet trusted setup loaded in {time.perf_counter() - t0:.2f} s")
     backend = TorchBackend(time_stages=True)
+    engine = check_engine(backend, settings)
     report = main_path(backend, settings)
     prover = prover_path(backend, settings)
+    host = host_placement(backend, settings)
 
     # Phase 4: report.  A kernel's launches on the path: one valid n = 64
     # batch, one commit and one proof, each counted from 0.
@@ -1078,6 +1432,9 @@ def main() -> int:
         row["launches"] = sum(counts[entry] for counts in runs.values())
         row["launches_by_run"] = {name: counts[entry] for name, counts in runs.items()}
         row[f"launches_n{large}"] = report["launches"][large][entry]
+    totals = {name: sum(counts.values()) for name, counts in runs.items()} | {f"n{large}": sum(report["launches"][large].values())}
+    if totals != PATH_LAUNCHES:
+        raise AssertionError(f"launches per run {totals}, expected {PATH_LAUNCHES}")
     missing = [e for e in _build.ENTRY_POINTS if e not in OFF_PATH and not any(counts[e] for counts in runs.values())]
     if missing:
         raise AssertionError(f"kernels of the path never launched by the n={small} batch, a commit or a proof: {missing}")
@@ -1093,6 +1450,23 @@ def main() -> int:
         log(f"launches: {row['name']}: {row['launches']} on the path ({json.dumps(row['launches_by_run'])}), {row[f'launches_n{large}']} in one n={large} batch")
     log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))
     log(json.dumps({"prover": prover, "card": card}))
+    log(json.dumps({"engine_vs_golden": engine, "card": card}))
+    # Host placement on this machine's CPU beside the card's figures.
+    log(
+        json.dumps(
+            {
+                "host_placement": {
+                    "e2e_ms": host["verify"]["e2e_ms"],
+                    "blobs_per_s": host["verify"]["blobs_per_s"],
+                    "prover_ms": host["host_ms"],
+                    "vectors": host["vectors"],
+                    "cpus": os.cpu_count(),
+                },
+                "card_path": {"e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "prover_ms": {k: v for k, v in prover["host_ms"].items() if not k.startswith("golden")}},
+                "card": card,
+            }
+        )
+    )
     # The kernels line lists the ports of the repo's TPU kernels, K1-K4, and
     # the prover's MSM kernels, M1 and M2; the launchers that share their
     # device functions are checked and logged above.

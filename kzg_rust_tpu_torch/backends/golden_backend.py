@@ -1,7 +1,8 @@
 """Host backend: golden-model orchestration.
 
-Group operations route through :mod:`kzg_rust_tpu_torch.hostcrypto`, which
-in the port is the pure-Python golden model.
+Group operations route through :mod:`kzg_rust_tpu_torch.hostcrypto`: the
+native host engine where it loads, else the pure-Python golden model (the
+same bits); the polynomial math and the fixed-base MSM here are golden.
 """
 
 from __future__ import annotations

@@ -19,8 +19,30 @@ Runs on the card, as launch sequences of the hand-written CUDA kernels:
   barycentric evaluation behind ``verify_blob_kzg_proof``, the quotients)
   and the fixed-base MSM.
 
-The pairings and the runtime-base group operations of single-proof
-verification stay the inherited host code (GoldenBackend).
+The host work between the launches (the pairing that ends a batch, the
+point decoding and subgroup checks of the protocol layer, and the G1/G2
+multiplies and pairing of single-proof verification, inherited from
+GoldenBackend) goes through :mod:`kzg_rust_tpu_torch.hostcrypto`, i.e. the
+native C++ host engine where it loads.
+
+Placement is the caller's choice, per call, through two environment
+variables, each ``device`` (the default) or ``host``:
+
+* ``KZG_TORCH_EVAL`` for verification: ``host`` runs
+  ``verify_blob_kzg_proof_batch``, ``verify_kzg_proof`` and
+  ``verify_blob_kzg_proof`` each as one call of the engine's fused
+  ``VerifyCtx``;
+* ``KZG_TORCH_PROVER`` for the prover: ``host`` runs
+  ``blob_to_kzg_commitment``, ``compute_kzg_proof`` and
+  ``compute_blob_kzg_proof`` each as one call of its ``ProverCtx``.
+
+``host`` without the engine raises RuntimeError.  The two variables stand
+in until the JAX package's measured ``auto`` placement (and its
+``host-piecewise`` mode) is ported (ROADMAP Queue 1 item 11), which is to
+replace them; either value raises ValueError for now.
+
+On a CUDA device the constructor builds and loads the engine and raises
+where it does not load (unless ``KZG_TORCH_NATIVE=0``).
 
 ``TorchBackend()`` runs on the current CUDA device and raises where CUDA is
 absent; only an explicit ``TorchBackend(device="cpu")`` runs the kernels'
@@ -35,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from .. import hostcrypto, native
 from ..errors import BadArgs
 from ..messages import (
     MSG_BLOB_LENGTH,
@@ -71,6 +94,20 @@ def _hash_pool():
     return _HASH_POOL
 
 
+def placement(var: str) -> str:
+    """``device`` or ``host``, as the environment variable ``var``
+    (``KZG_TORCH_EVAL`` or ``KZG_TORCH_PROVER``) asks; ``device`` when unset."""
+    mode = os.environ.get(var, "device")
+    if mode in ("auto", "host-piecewise"):
+        raise ValueError(
+            f"{var}={mode}: the JAX package's measured placement is not ported yet "
+            "(ROADMAP Queue 1 item 11); use device or host"
+        )
+    if mode not in ("device", "host"):
+        raise ValueError(f"{var}={mode!r}: expected device or host")
+    return mode
+
+
 class TorchBackend(GoldenBackend):
     name = "torch"
 
@@ -84,6 +121,11 @@ class TorchBackend(GoldenBackend):
                 )
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = torch.device(device)
+        # On the card the host work between launches runs in the native
+        # engine: a failed build fails here, not as a quiet switch to the
+        # golden model, which only KZG_TORCH_NATIVE=0 asks for.
+        if self.device.type == "cuda" and native.wanted():
+            native.require()
         self._ctx = {}
         # With time_stages on a CUDA device, each call records a pair of
         # CUDA events around every stage (stage_ms() reads them) and the
@@ -128,15 +170,92 @@ class TorchBackend(GoldenBackend):
     ) -> bool:
         """Batched re-expression of the reference's per-blob loop + RLC
         combination (reference: kzg.rs:637-693, :579-627).  Same validation
-        and bit-exact outcomes; execution is three device stages."""
+        and bit-exact outcomes; execution is three device stages, or one
+        call of the host engine with ``KZG_TORCH_EVAL=host``."""
+        host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
         preset = settings.preset
         for b in blobs:
             if len(b) != preset.bytes_per_blob:
                 raise BadArgs(MSG_BLOB_LENGTH)
+        # The engine reads exactly 48 bytes a point: a wrong length must
+        # raise here, not read past the joined buffer.
         for b in list(commitments_bytes) + list(proofs_bytes):
             if len(bytes(b)) != 48:
                 raise BadArgs(MSG_EXPECT_48)
-        return self._verify_batch_device(settings, blobs, commitments_bytes, proofs_bytes)
+        if host is None:
+            return self._verify_batch_device(settings, blobs, commitments_bytes, proofs_bytes)
+        n = len(blobs)
+        comms = b"".join(bytes(b) for b in commitments_bytes)
+        proofs = b"".join(bytes(b) for b in proofs_bytes)
+        if all(isinstance(b, bytes) for b in blobs):
+            # Only the blobs' pointers cross the boundary, not their bytes.
+            return host.verify_scatter(blobs, n, comms, proofs)
+        return host.verify(b"".join(bytes(b) for b in blobs), n, comms, proofs)
+
+    def verify_kzg_proof_pipeline(self, settings, commitment_bytes, z_bytes, y_bytes, proof_bytes):
+        """``verify_kzg_proof`` (reference: kzg.rs:429-443) as one call of
+        the host engine with ``KZG_TORCH_EVAL=host``; NotImplemented (the
+        protocol's piecewise path) on the device, and for a wrong length,
+        whose exact error the piecewise path raises."""
+        host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
+        if host is None or (len(commitment_bytes), len(z_bytes), len(y_bytes), len(proof_bytes)) != (48, 32, 32, 48):
+            return NotImplemented
+        return host.verify_single(bytes(commitment_bytes), bytes(z_bytes), bytes(y_bytes), bytes(proof_bytes))
+
+    def verify_blob_pipeline(self, settings, blob, commitment_bytes, proof_bytes):
+        """``verify_blob_kzg_proof`` (reference: kzg.rs:547-569) as one call
+        of the host engine with ``KZG_TORCH_EVAL=host``; NotImplemented on
+        the device (the piecewise path, its barycentric evaluation on the
+        card)."""
+        host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
+        if host is None:
+            return NotImplemented
+        if len(blob) != settings.preset.bytes_per_blob:
+            raise BadArgs(MSG_BLOB_LENGTH)
+        if len(commitment_bytes) != 48 or len(proof_bytes) != 48:
+            return NotImplemented
+        return host.verify_blob_single(bytes(blob), bytes(commitment_bytes), bytes(proof_bytes))
+
+    # -- host placement -------------------------------------------------------
+
+    def _host_ctx(self, var: str, ctx, settings):
+        """The engine's context ``ctx(settings)`` when ``var`` asks for host
+        placement, None for the device; RuntimeError for host without the
+        engine."""
+        if placement(var) == "device":
+            return None
+        host = ctx(settings)
+        if host is None:
+            raise RuntimeError(f"{var}=host but the native host engine is not available")
+        return host
+
+    def _verify_native_ctx(self, settings):
+        """The engine's fused verification context for this setup, or None."""
+        cache = settings._device_cache
+        if "verify_native" not in cache:
+            from ..golden import curve as gcurve
+            from ..presets import FIAT_SHAMIR_PROTOCOL_DOMAIN, RANDOM_CHALLENGE_KZG_BATCH_DOMAIN
+
+            cache["verify_native"] = hostcrypto.verify_ctx(
+                settings.roots_of_unity,
+                settings.g2_values[1],
+                gcurve.G2_GENERATOR,
+                FIAT_SHAMIR_PROTOCOL_DOMAIN,
+                RANDOM_CHALLENGE_KZG_BATCH_DOMAIN,
+            )
+        return cache["verify_native"]
+
+    def _prover_native_ctx(self, settings):
+        """The engine's fused prover context for this setup, or None."""
+        cache = settings._device_cache
+        if "prover_native" not in cache:
+            from ..presets import FIAT_SHAMIR_PROTOCOL_DOMAIN
+
+            cache["prover_native"] = hostcrypto.prover_ctx(
+                settings.roots_of_unity, settings.g1_values, FIAT_SHAMIR_PROTOCOL_DOMAIN
+            )
+        return cache["prover_native"]
+
 
     def _in_domain_overrides(self, settings, blobs, zs):
         """The in-domain short-circuit (reference: kzg.rs:360-362): replace
@@ -324,13 +443,25 @@ class TorchBackend(GoldenBackend):
         packed = torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
         return packed.cpu().numpy()
 
+    def _prover_host(self, settings, blob):
+        """The engine's prover context with ``KZG_TORCH_PROVER=host`` (the
+        blob's length checked), None for the device."""
+        host = self._host_ctx("KZG_TORCH_PROVER", self._prover_native_ctx, settings)
+        if host is not None and len(blob) != settings.preset.bytes_per_blob:
+            raise BadArgs(MSG_BLOB_LENGTH)
+        return host
+
     def blob_to_commitment_pipeline(self, settings, blob):
         """``blob_to_kzg_commitment`` (reference: kzg.rs:396-406) as one
         device sequence (ingest, canonicality, M1, M2, K3 tree) and one
-        fetch of the point and the flag."""
+        fetch of the point and the flag; one engine call with
+        ``KZG_TORCH_PROVER=host``."""
         from ..ops import curve as C
         from ..ops import prover_kernels as PR
 
+        host = self._prover_host(settings, blob)
+        if host is not None:
+            return host.commit(bytes(blob))
         ctx = self._msm_ctx(settings)
         if ctx is None:
             return NotImplemented
@@ -349,12 +480,16 @@ class TorchBackend(GoldenBackend):
         """``compute_kzg_proof_impl`` (reference: kzg.rs:461-528) as one
         device sequence (ingest, y, quotient, M1, M2, K3 tree) and one fetch
         of the proof point, y and the flag.  Whether z is a root of the
-        domain is decided here on the host."""
+        domain is decided here on the host.  One engine call with
+        ``KZG_TORCH_PROVER=host``."""
         from ..ops import curve as C
         from ..ops import limbs as L
         from ..ops import prover_kernels as PR
         from ..ops.limbs import FR
 
+        host = self._prover_host(settings, blob)
+        if host is not None:
+            return host.prove(bytes(blob), z.to_bytes(32, "big"))
         ctx = self._msm_ctx(settings)
         if ctx is None:
             return NotImplemented
@@ -371,6 +506,19 @@ class TorchBackend(GoldenBackend):
         pw = 3 * L.FP.nwords
         proof_pt = C.proj_to_points(arr[:pw].reshape(1, 3, -1))[0]
         return proof_pt, L.words_to_ints(arr[pw : pw + FR.nwords].reshape(1, -1))[0]
+
+    def compute_blob_proof_pipeline(self, settings, blob, commitment_bytes):
+        """``compute_blob_kzg_proof`` (reference: kzg.rs:533-544) as one
+        engine call with ``KZG_TORCH_PROVER=host``: commitment validation,
+        challenge, quotient and MSM.  NotImplemented on the device, where the
+        protocol validates and hashes on the host and then runs
+        :meth:`compute_kzg_proof_pipeline`."""
+        host = self._prover_host(settings, blob)
+        if host is None:
+            return NotImplemented
+        if len(bytes(commitment_bytes)) != 48:
+            raise BadArgs(MSG_EXPECT_48)
+        return host.blob_proof(bytes(blob), bytes(commitment_bytes))
 
     def msm_g1_lagrange(self, settings, scalars):
         from ..ops import msm as M

@@ -112,10 +112,9 @@ def _validate_cached_points(g1_values, g2_values, n1: int, n2: int) -> bool:
     The filename hash keys on the *inputs*, not the file contents, so a
     writable cache dir is part of the trust base.  Cheap checks run
     unconditionally (on-curve for every point, the Lagrange-form pairing
-    check).  The port has no native host engine yet, so the G1 subgroup
-    sweep, which the JAX package runs only through that engine, is skipped
-    here as it is there without it.  Any failure discards the cache entry
-    and falls back to decompressing the original bytes."""
+    check); the G1 subgroup sweep runs through the native host engine when
+    it loads.  Any failure discards the cache entry and falls back to
+    decompressing the original bytes."""
     from .golden import curve as gc
 
     try:
@@ -127,6 +126,11 @@ def _validate_cached_points(g1_values, g2_values, n1: int, n2: int) -> bool:
                     return False
             for p in g2_values:
                 if p is not None and not gc.g2_is_on_curve(p):
+                    return False
+            from . import native as _native
+
+            if _native.available():
+                if not hostcrypto.g1_subgroup_batch(g1_values):
                     return False
             is_trusted_setup_in_lagrange_form(g1_values, g2_values)
     except Exception:
