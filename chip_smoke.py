@@ -18,8 +18,11 @@ Phases, any failure of which exits non-zero without the final line:
    does not hold); the K4 chain also against as many one-step K4
    launches, and the constant-exponent chains of K1 and K2 against the
    same chains as launch sequences of K1 or K2, which are timed too; the
-   prover's M1 (GLV digits) and M2 (MSM accumulation) at mainnet width,
-   edge scalars and an infinity column included;
+   prover's M1 (GLV digits) and M2 (the MSM after the digits, one launch)
+   at mainnet width, edge scalars and an infinity column included, M2 also
+   on a table of repeated and negated points (P == Q, P == -Q, infinity)
+   and at every (accumulators, block) of its sweep; the verify
+   path's small launchers at the widest shapes it gives them;
 2b. hold the engine against the golden model on this machine's CPU, exactly:
    SHA-256 against hashlib, the G1 and G2 codecs (invalid encodings
    included), G1 and G2 multiplies, the G1 lincomb, the pairing (true,
@@ -42,7 +45,7 @@ Phases, any failure of which exits non-zero without the final line:
    ``compute_blob_kzg_proof`` and ``verify_blob_kzg_proof``, two in-domain
    proofs (z = the first and the last root) checked by y and by
    ``verify_kzg_proof``, the launch counts of one commit and one proof (M1
-   and M2 once each), host and device times;
+   and M2 once each, no K3 inside the MSM), host and device times;
 3c. host placement on the same machine: with ``KZG_TORCH_EVAL=host`` the 22
    batch vectors and the five lanes at both n, in the engine's fused
    context with no launch; with ``KZG_TORCH_PROVER=host`` (and
@@ -92,7 +95,12 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed"}
 # tree's first level (66 windows x 4096 blobs x 4 lanes, halved); K4 and its
 # chain at the window-base chain's widths (n = 4096 and n = 64).  The
 # prover's MSM at mainnet width: M1 over one blob's 4096 scalars, M2 over
-# the [26, 16, 4096] table, the mixed add alone at M2's partial-sum count.
+# the [26, 16, 4096] table, the mixed add alone at M2's accumulator count.
+# The verify path's small launchers at the widest shapes it gives them at
+# n = 4096: the barycentric differences (kzg_fr_sub, 4096 x 4096 from two
+# broadcast [4096] operands), the blobs' canonicality (kzg_fr_cmp over
+# 4096 x 4096 elements) and the domain sum (kzg_fr_sum_rows, [4096, 4096]
+# rows in chunks of 64 to [64, 4096], then to [4096]: two launches).
 SHAPES = {
     "fp": 8192,
     "fr": 262144,
@@ -103,10 +111,15 @@ SHAPES = {
     "add": (65536, 540672),
     "double": (8192, 128),
     "msm": 4096,
+    "fr_path": 4096,
 }
 # Launches in one valid batch at n = 64 and 4096, one commit and one proof
-# with z out of the domain.
-PATH_LAUNCHES = {"n64": 119, "n4096": 131, "commit": 19, "proof": 70}
+# with z out of the domain.  The MSM in each is M1 and M2, one launch each.
+PATH_LAUNCHES = {"n64": 119, "n4096": 131, "commit": 3, "proof": 54}
+# M2's sweep on the card: (accumulators an SM, threads a block), each
+# timed and held against its plain version; ops/msm.py takes the fastest
+# as its default.
+MSM_SWEEP = ((128, 128), (256, 128), (384, 128), (256, 256), (384, 384))
 # The mainnet vectors of the prover phase, by kind, and how many each has.
 PROVER_VECTORS = {
     "blob_to_kzg_commitment": 10,
@@ -604,10 +617,11 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     # [26, 16, 4096] table of random canonical words (its arithmetic is the
     # same on any canonical operands; the real table runs in phase 3b, where
     # the vectors check it) with point 5 infinity, on M1's digits, at the
-    # partial-sum count the path takes.  M2's work depends on the digits:
-    # its bound counts the selections with a nonzero digit and a finite
-    # base, 11 products each and 12 in the phi half, and the 96 bytes of
-    # table each reads.
+    # configuration the path takes.  M2's work depends on the digits: its
+    # bound counts the selections with a nonzero digit and a finite base,
+    # 11 products each and 12 in the phi half, and the 96 bytes of table
+    # each reads (the bound M2 has always been held to); its second count
+    # adds the reduction's A - 1 complete adds of 12 products.
     from kzg_rust_tpu_torch.ops import glv
     from kzg_rust_tpu_torch.ops import msm as M
 
@@ -634,46 +648,98 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         v1, v2 = (sum(int(check[h, j, i]) << (5 * j) for j in range(M.GLV_NUM_WINDOWS)) for h in (0, 1))
         if (v1 + v2 * glv.LAM) % R != scalars[i] or max(abs(v1), abs(v2)) >= 1 << 128:
             raise AssertionError(f"M1: the digits of scalar {i} do not recombine to it")
-    fold = M.default_fold(npts, device)
+    accs, block = M.msm_config(npts, device)
     table = L.to_device(L.FP, random_field(rng, P, M.GLV_NUM_WINDOWS * M.GLV_NUM_MULTIPLES * npts * 2), device)
     table = table.reshape(M.GLV_NUM_WINDOWS, M.GLV_NUM_MULTIPLES, npts, 2, L.FP.nwords)
     inf = torch.zeros(npts, dtype=torch.bool, device=device)
     inf[5] = True
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
     valid = (digits != 0) & ~inf[None, None]
     selected = [int(valid[h].sum()) for h in (0, 1)]
-    m2 = record(
-        "M2 kzg_msm_glv_accumulate",
-        lambda t, f=fold: M.msm_accumulate(t, inf, digits, f),
-        lambda t, f=fold: M.msm_accumulate_plain(t, inf, digits, f),
-        (table,),
-        msrc,
-        "kzg_rust_tpu/ops/msm.py:202 (_msm_core_glv with curve.py:350 fold_reduce_mixed, an XLA program)",
-        sum(selected) * 96 + digits.numel() + npts + fold * 144,
-        (selected[0] * MIXED_PRODUCTS + selected[1] * (MIXED_PRODUCTS + 1)) * mont_products(12),
-        20,
-        keep=False,
-        plain_reps=1,
+    selection_ops = (selected[0] * MIXED_PRODUCTS + selected[1] * (MIXED_PRODUCTS + 1)) * mont_products(12)
+
+    def msm_row(a, b):
+        return record(
+            "M2 kzg_msm_glv",
+            lambda t: M.msm_point(t, inf, digits, a, b, ticket),
+            lambda t: M.msm_point_plain(t, inf, digits, a, b),
+            (table,),
+            msrc,
+            "kzg_rust_tpu/ops/msm.py:202 (_msm_core_glv with curve.py:350 fold_reduce_mixed, an XLA program)",
+            sum(selected) * 96 + digits.numel() + npts + 144,
+            selection_ops,
+            20,
+            keep=False,
+            plain_reps=1,
+        )
+
+    # The sweep: every configuration held word for word against its plain
+    # version and timed from a CUDA graph.  (The random table's entries are
+    # not curve points, so the groupings' sums differ; the real points run
+    # below and in phase 3b.)
+    sweep = []
+    for per_sm, b in MSM_SWEEP:
+        a = min(sms * per_sm, 2 * M.GLV_NUM_WINDOWS * npts)
+        row = msm_row(a, b)
+        sweep.append({"accumulators_per_sm": per_sm, "accumulators": a, "block": b, "ms": row["ms"], "call_ms": row["call_ms"]})
+    log(f"kernel M2: sweep (accumulators an SM, block) -> ms: {json.dumps(sweep)}")
+    m2 = msm_row(accs, block)
+    # M2 on all-zero digits takes no selection: its time is the reduction
+    # (and the selection loop's bare steps), so the rest is the accumulation.
+    no_digits = torch.zeros_like(digits)
+    reduction_ms = graph_ms(lambda: M.msm_point(table, inf, no_digits, accs, block, ticket), 20)
+    m2.update(
+        accumulators=accs,
+        block=block,
+        selections=sum(selected),
+        selections_phi=selected[1],
+        selections_per_accumulator=-(-2 * M.GLV_NUM_WINDOWS * npts // accs),
+        bound_ms_with_reduction=bound(0, selection_ops + (accs - 1) * ADD_PRODUCTS * mont_products(12))[0],
+        reduction_ms=reduction_ms,
+        accumulation_ms=m2["ms"] - reduction_ms,
+        sweep=sweep,
     )
-    m2.update(fold=fold, selections=sum(selected), selections_phi=selected[1], columns_per_thread=-(-2 * M.GLV_NUM_WINDOWS * npts // fold))
-    # The choice of the partial-sum count: M2 and the K3 tree over its
-    # partials at 128 to 512 partial sums an SM (CUDA-graph replay; the tree
-    # also as called from Python, as the path enqueues it).
-    sweep = {}
-    for per_sm in (128, 256, 384, 512):
-        f = min(sms * per_sm, 2 * M.GLV_NUM_WINDOWS * npts)
-        partials = M.msm_accumulate(table, inf, digits, f)
-        sweep[per_sm] = {
-            "fold": f,
-            "m2_ms": graph_ms(lambda f=f: M.msm_accumulate(table, inf, digits, f), 10),
-            "tree_ms": graph_ms(lambda p=partials: C.sum_points(p), 10),
-            "tree_call_ms": cuda_ms(lambda p=partials: C.sum_points(p), 10),
-        }
-    m2["fold_sweep"] = sweep
-    log(f"kernel M2: partial sums an SM -> M2 and tree ms: {json.dumps(sweep)}")
+    log(
+        f"kernel M2: {m2['ms']:.4f} ms at {accs} accumulators in blocks of {block}; "
+        f"bound {m2['bound_ms']:.4f} ms ({m2['bound_ms'] / m2['ms']:.0%}), with the reduction's adds "
+        f"{m2['bound_ms_with_reduction']:.4f} ms ({m2['bound_ms_with_reduction'] / m2['ms']:.0%}); on zero digits (the "
+        f"reduction alone) {reduction_ms:.4f} ms, so the accumulation {m2['accumulation_ms']:.4f} ms "
+        f"({m2['bound_ms'] / m2['accumulation_ms']:.0%} of the selection bound)"
+    )
     m1["at_msm_width"] = npts
-    # The mixed add alone, one per partial sum of M2.
-    mp, _ = random_points(rng, fold, device)
-    mq = L.to_device(L.FP, random_field(rng, P, 2 * fold), device).reshape(fold, 2, L.FP.nwords)
+    del table
+
+    # M2 on a real table whose second half repeats and negates the first
+    # (points 64-95 are 0-31, 96-126 are -(32-62), 63 and 127 infinity) and
+    # scalars that repeat with it: at 64 accumulators each mixes points i and
+    # i + 64 of one window in turn (P == Q, P == -Q, then adds onto
+    # infinity); at 128 (one block) accumulator i is k_i P_i and the tree's
+    # first level adds accumulators i and i + 64.  Each kernel point equals
+    # its plain version and the golden lincomb.
+    from kzg_rust_tpu_torch.golden import curve as gc
+
+    half = 64
+    base = [gc.g1_mul(gc.G1_GENERATOR, k + 1) for k in random_field(rng, R - 1, half - 1)] + [None]
+    pts = base + base[:32] + [(x, (-y) % P) for x, y in base[32:63]] + [None]
+    ks = random_field(rng, R, half)
+    ks = ks + ks
+    edge = M.MsmContext.build_from_points(pts, device)
+    edge_digits = M.glv_digits_from_limbs(L.to_device(L.FR, ks, device))
+    want = gc.g1_lincomb_naive(pts, ks)
+    total = 2 * M.GLV_NUM_WINDOWS * 2 * half
+    for a, b in ((half, 128), (2 * half, 128), (total, 256), (total, 384)):
+        got = M.msm_point(edge.table, edge.inf_mask, edge_digits, a, b, edge.ticket)
+        plain = M.msm_point_plain(edge.table, edge.inf_mask, edge_digits, a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"M2 at ({a}, {b}) on the repeated and negated points: disagrees with its plain version")
+        if C.proj_to_points(got[None].cpu())[0] != want:
+            raise AssertionError(f"M2 at ({a}, {b}) on the repeated and negated points: not the lincomb")
+    log("kernel M2: equal to its plain version and to the golden lincomb on repeated and negated points (P == Q, P == -Q, infinity)")
+
+    # The mixed add alone, one per accumulator of M2.
+    mp, _ = random_points(rng, accs, device)
+    mq = L.to_device(L.FP, random_field(rng, P, 2 * accs), device).reshape(accs, 2, L.FP.nwords)
     record(
         "kzg_proj_add_mixed",
         C.proj_add_mixed,
@@ -681,11 +747,62 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         (mp, mq),
         msrc,
         "kzg_rust_tpu/ops/curve.py:157 (proj_add_mixed, an XLA op)",
-        fold * (144 + 96 + 144),
-        fold * MIXED_PRODUCTS * mont_products(12),
+        accs * (144 + 96 + 144),
+        accs * MIXED_PRODUCTS * mont_products(12),
         50,
     )
-    del table
+
+    # The verify path's small launchers at n = 4096: the barycentric
+    # differences x - w_i of every blob and root (two broadcast operands, a
+    # 537 MB result), the blobs' canonicality over every element, and the
+    # domain sum's two launches (4096 rows of 4096 terms in chunks of 64,
+    # then the 64 partial rows; any order of a modular sum gives the same
+    # words).
+    nb = SHAPES["fr_path"]
+    xs = L.to_device(L.FR, random_field(rng, R, nb), device)
+    roots = L.to_device(L.FR, random_field(rng, R, nb), device)
+    mod_r = L.FR.const("mod", device)
+    record(
+        "kzg_fr_sub",
+        lambda x, w: L.sub_mod(L.FR, x[None], w[:, None]),
+        lambda x, w: L.sub_mod_plain(L.FR, x[None], w[:, None]),
+        (xs, roots),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
+        2 * nb * 32 + nb * nb * 32,
+        nb * nb * 3 * 8,
+        20,
+        plain_reps=1,
+    )
+    wide = torch.randint(-(1 << 31), 1 << 31, (nb * nb, 8), dtype=torch.int32, device=device, generator=gen)
+    wide[:, 7] &= 0x7FFFFFFF  # below 2^255: about half of them at or above r
+    record(
+        "kzg_fr_cmp",
+        lambda x: L.geq_mod(L.FR, x).to(torch.int32),
+        lambda x: L.cmp_plain(x, mod_r, 1).to(torch.int32),
+        (wide,),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:299 (geq_const, an XLA op)",
+        nb * nb * (32 + 1),
+        nb * nb * 8,
+        20,
+        plain_reps=1,
+    )
+    rows3 = wide.reshape(nb, nb, 8)
+    rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
+    record(
+        "kzg_fr_sum_rows",
+        lambda x: L.sum_mod(L.FR, x),
+        lambda x: L.sum_mod_plain(L.FR, x),
+        (rows3,),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
+        nb * nb * 32 + 2 * (nb // 64) * nb * 32 + nb * 32,
+        nb * nb * 3 * 8,
+        20,
+        plain_reps=1,
+    )
+    del wide, rows3
 
     # The kernels line: K1 and K2 as the chains the path launches, with
     # their single products beside them; K3 at the widest launch and K4 as
@@ -1217,10 +1334,11 @@ def prover_path(backend, settings) -> dict:
         "bytes": ctx.table.numel() * ctx.table.element_size() + ctx.inf_mask.numel(),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "peak_above_before_bytes": torch.cuda.max_memory_allocated() - before,
-        "fold": ctx.fold,
+        "accumulators": ctx.accumulators,
+        "block": ctx.block,
         "shape": list(ctx.table.shape),
     }
-    log(f"prover: MSM table {report['table']['shape']} ({report['table']['bytes']} bytes) built in {report['table']['host_ms']:.1f} ms host clock, {report['table']['device_ms']:.1f} ms between CUDA events; peak {report['table']['peak_mem_bytes']} bytes ({report['table']['peak_above_before_bytes']} above what was allocated before); M2 takes {ctx.fold} partial sums")
+    log(f"prover: MSM table {report['table']['shape']} ({report['table']['bytes']} bytes) built in {report['table']['host_ms']:.1f} ms host clock, {report['table']['device_ms']:.1f} ms between CUDA events; peak {report['table']['peak_mem_bytes']} bytes ({report['table']['peak_above_before_bytes']} above what was allocated before); M2 takes {ctx.accumulators} accumulators in blocks of {ctx.block}")
 
     report["vectors"] = prover_vectors(backend, settings, "prover")
 
@@ -1239,16 +1357,17 @@ def prover_path(backend, settings) -> dict:
     log(f"prover: in-domain proofs at roots[0] and roots[{n - 1}]: y is the blob's element and verify_kzg_proof accepts")
 
     # Launch counts of one commit and one proof: counts set to 0 just
-    # before, read just after.  M1 and M2 once per MSM.
+    # before, read just after.  M1 and M2 once per MSM, and no K3: the MSM
+    # reduces its own sums (neither call launches K3 outside the MSM).
     entry = prover_calls(backend, settings, blob, commitment)
     for name in ("commit", "proof"):
         _build.reset_launches()
         entry[name]()
         torch.cuda.synchronize()
         report["launches"][name] = dict(_build.LAUNCHES)
-        msm = {e: report["launches"][name][e] for e in ("kzg_glv_digits", "kzg_msm_glv_accumulate")}
-        if msm != {"kzg_glv_digits": 1, "kzg_msm_glv_accumulate": 1}:
-            raise AssertionError(f"{name}: M1 and M2 launches {msm}, expected one each")
+        msm = {e: report["launches"][name][e] for e in ("kzg_glv_digits", "kzg_msm_glv", "kzg_proj_add")}
+        if msm != {"kzg_glv_digits": 1, "kzg_msm_glv": 1, "kzg_proj_add": 0}:
+            raise AssertionError(f"{name}: M1, M2 and K3 launches {msm}, expected one, one and none")
         log(f"prover: launches in one {name}: {sum(report['launches'][name].values())}: {json.dumps({e: c for e, c in report['launches'][name].items() if c})}")
 
     # Host-clock milliseconds of each entry point (median of 3) and the

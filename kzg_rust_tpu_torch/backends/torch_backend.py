@@ -68,7 +68,7 @@ from ..messages import (
 )
 from .golden_backend import GoldenBackend
 
-STAGES = ("stage1", "bary", "stage2", "quotient", "digits", "accumulate", "tree")
+STAGES = ("stage1", "bary", "stage2", "quotient", "digits", "accumulate")
 
 
 def _pow2_pad(n: int, lo: int = 2) -> int:
@@ -453,7 +453,7 @@ class TorchBackend(GoldenBackend):
 
     def blob_to_commitment_pipeline(self, settings, blob):
         """``blob_to_kzg_commitment`` (reference: kzg.rs:396-406) as one
-        device sequence (ingest, canonicality, M1, M2, K3 tree) and one
+        device sequence (ingest, canonicality, M1, M2) and one
         fetch of the point and the flag; one engine call with
         ``KZG_TORCH_PROVER=host``."""
         from ..ops import curve as C
@@ -478,7 +478,7 @@ class TorchBackend(GoldenBackend):
 
     def compute_kzg_proof_pipeline(self, settings, blob, z: int):
         """``compute_kzg_proof_impl`` (reference: kzg.rs:461-528) as one
-        device sequence (ingest, y, quotient, M1, M2, K3 tree) and one fetch
+        device sequence (ingest, y, quotient, M1, M2) and one fetch
         of the proof point, y and the flag.  Whether z is a root of the
         domain is decided here on the host.  One engine call with
         ``KZG_TORCH_PROVER=host``."""

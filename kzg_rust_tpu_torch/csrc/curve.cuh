@@ -1,8 +1,9 @@
 // G1 point arithmetic for Hopper (sm_90a): the Fp element type of the curve
 // kernels and the complete formulas of Renes, Costello and Batina (eprint
 // 2015/1060, a = 0, b3 = 3 b = 12) that more than one kernel file uses.
-// Shared by curve_kernels.cu (K3, K4) and msm_kernels.cu (M2 and the mixed
-// add launcher).  Every value is a canonical Fp element in Montgomery form.
+// Shared by curve_kernels.cu (K3, K4) and msm_kernels.cu (M2 with its
+// reduction, and the mixed add launcher).  Every value is a canonical Fp
+// element in Montgomery form.
 
 #pragma once
 
@@ -79,6 +80,120 @@ __device__ __forceinline__ void add_mixed(Elt& X, Elt& Y, Elt& Z, const Elt& x2,
   X = sub(mul(t3, t1m), mul(t4, y3t));
   Y = add(mul(y3t, three_t0), mul(t1m, z3t));
   Z = add(mul(z3t, t4), mul(three_t0, t3));
+}
+
+// One coordinate from shared memory.  asm volatile keeps each reload where
+// the formula needs it, so the compiler cannot hold the operand in
+// registers across the products instead.
+__device__ __forceinline__ Elt lds(const uint4* s) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
+  Elt r;
+#pragma unroll
+  for (int k = 0; k < 3; k++)
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r.w[4 * k]), "=r"(r.w[4 * k + 1]), "=r"(r.w[4 * k + 2]),
+                   "=r"(r.w[4 * k + 3])
+                 : "r"(a + 16 * k));
+  return r;
+}
+
+__device__ __forceinline__ void sts(uint4* s, const Elt& v) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
+#pragma unroll
+  for (int k = 0; k < 3; k++)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a + 16 * k),
+                 "r"(v.w[4 * k]), "r"(v.w[4 * k + 1]), "r"(v.w[4 * k + 2]),
+                 "r"(v.w[4 * k + 3])
+                 : "memory");
+}
+
+// a += b for two projective points in shared memory (9 16-byte vectors
+// each: X at 0-2, Y at 3-5, Z at 6-8) by one thread: the complete add, RCB
+// algorithm 7 (a = 0), in the order of curve.py's proj_add (:122).  The
+// products of X come first, then those of Y and Z; a coordinate's slots
+// take temporaries once its last product is done (b's slots too: b is
+// spent), so at most four 12-word temporaries are live in registers beside
+// the product being taken.  X3 waits in b's Z slot until t3 leaves a's X
+// slot.  K3's thread body; M2's trees take the same add over lanes
+// (add_lanes below).
+__device__ __forceinline__ void add_staged(uint4* a, uint4* b) {
+  uint4 *const ax = a, *const ay = a + 3, *const az = a + 6;
+  uint4 *const bx = b, *const by = b + 3, *const bz = b + 6;
+  const Elt t0 = mul(lds(ax), lds(bx));
+  const Elt r3 = mul(add(lds(ax), lds(ay)), add(lds(bx), lds(by)));  // t3 + t0 + t1
+  const Elt r5 = mul(add(lds(ax), lds(az)), add(lds(bx), lds(bz)));  // t5 + t0 + t2
+  sts(ax, r3);
+  sts(bx, r5);
+  const Elt t1 = mul(lds(ay), lds(by));
+  const Elt t2 = mul(lds(az), lds(bz));
+  sts(by, sub(mul(add(lds(ay), lds(az)), add(lds(by), lds(bz))), add(t1, t2)));  // t4
+  sts(ax, sub(lds(ax), add(t0, t1)));                                             // t3
+  const Elt t5 = sub(lds(bx), add(t0, t2));
+  sts(bx, add(add(t0, t0), t0));                                                  // 3 t0
+  const Elt bt2 = times_b3(t2);
+  const Elt z3t = add(t1, bt2);
+  const Elt t1m = sub(t1, bt2);
+  const Elt y3t = times_b3(t5);
+  sts(bz, mul(lds(ax), t1m));
+  sts(bz, sub(lds(bz), mul(lds(by), y3t)));                        // X3
+  sts(ay, add(mul(y3t, lds(bx)), mul(t1m, z3t)));                 // Y3
+  sts(az, add(mul(z3t, lds(by)), mul(lds(bx), lds(ax))));         // Z3
+  sts(ax, lds(bz));
+}
+
+__device__ __forceinline__ Elt sel(bool c, const Elt& a, const Elt& b) {
+  Elt r;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
+}
+
+// a += b as add_staged, by the G lanes of one group (G = 2, 4 or 8; lane r
+// in 0..G-1, mask naming the group's lanes).  The formula's twelve
+// products fall into two levels of six independent ones, and lane r takes
+// products r, r + G, ... of each level, so a point waits for 12 / G
+// products, or two with G = 8 (lanes 6 and 7 then idle), not twelve.  The
+// lanes exchange the first level's products through the group's scratch s
+// (12 coordinates); each lane forms all six second-level operands from
+// them (t3, t1 - b3 t2, t4, b3 t5, 3 t0, t1 + b3 t2) and picks its own, and
+// lanes 0-2 form X3 = q0 - q1, Y3 = q2 + q3 and Z3 = q4 + q5 from the
+// second level's products into a.  Every coordinate is the canonical value
+// of the same formula, so a gets add_staged's words.  b is only read.
+template <int G>
+__device__ __forceinline__ void add_lanes(uint4* a, const uint4* b, uint4* s, int r, unsigned mask) {
+  Elt zero;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) zero.w[j] = 0;
+  // t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, r3 = (X1 + Y1)(X2 + Y2),
+  // r4 = (Y1 + Z1)(Y2 + Z2), r5 = (X1 + Z1)(X2 + Z2): coordinate u, plus
+  // coordinate v from q = 3 on.
+  for (int q = r; q < 6; q += G) {
+    const int u = q < 3 ? q : (q == 4 ? 1 : 0), v = q == 3 ? 1 : 2;
+    const Elt x = add(lds(a + 3 * u), sel(q >= 3, lds(a + 3 * v), zero));
+    const Elt y = add(lds(b + 3 * u), sel(q >= 3, lds(b + 3 * v), zero));
+    sts(s + 3 * q, mul(x, y));
+  }
+  __syncwarp(mask);
+  // q0 = t3 t1m, q1 = t4 y3t, q2 = y3t 3t0, q3 = t1m z3t, q4 = z3t t4,
+  // q5 = 3t0 t3.
+  const Elt t0 = lds(s), t1 = lds(s + 3), t2 = lds(s + 6);
+  const Elt bt2 = times_b3(t2);
+  const Elt t1m = sub(t1, bt2), z3t = add(t1, bt2), three_t0 = add(add(t0, t0), t0);
+  const Elt t3 = sub(lds(s + 9), add(t0, t1));
+  const Elt t4 = sub(lds(s + 12), add(t1, t2));
+  const Elt y3t = times_b3(sub(lds(s + 15), add(t0, t2)));
+  __syncwarp(mask);
+  for (int q = r; q < 6; q += G) {
+    const Elt left = sel(q == 0, t3, sel(q == 1, t4, sel(q == 2, y3t, sel(q == 3, t1m, sel(q == 4, z3t, three_t0)))));
+    const Elt right = sel(q == 0, t1m, sel(q == 1, y3t, sel(q == 2, three_t0, sel(q == 3, z3t, sel(q == 4, t4, t3)))));
+    sts(s + 3 * q, mul(left, right));
+  }
+  __syncwarp(mask);
+  for (int c = r; c < 3; c += G) {
+    const Elt e = lds(s + 6 * c), f = lds(s + 6 * c + 3);
+    sts(a + 3 * c, c == 0 ? sub(e, f) : add(e, f));
+  }
+  __syncwarp(mask);
 }
 
 }  // namespace kzg

@@ -64,38 +64,9 @@ namespace {
 constexpr int N = Fp::N;
 constexpr int kVecs = 9;  // 16-byte vectors per point; 3 per coordinate
 
-// One coordinate from shared memory.  asm volatile keeps each reload where
-// the formula needs it, so the compiler cannot hold the operand in
-// registers across the products instead.
-__device__ __forceinline__ Elt lds(const uint4* s) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
-  Elt r;
-#pragma unroll
-  for (int k = 0; k < 3; k++)
-    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(r.w[4 * k]), "=r"(r.w[4 * k + 1]), "=r"(r.w[4 * k + 2]),
-                   "=r"(r.w[4 * k + 3])
-                 : "r"(a + 16 * k));
-  return r;
-}
-
-__device__ __forceinline__ void sts(uint4* s, const Elt& v) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
-#pragma unroll
-  for (int k = 0; k < 3; k++)
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a + 16 * k),
-                 "r"(v.w[4 * k]), "r"(v.w[4 * k + 1]), "r"(v.w[4 * k + 2]),
-                 "r"(v.w[4 * k + 3])
-                 : "memory");
-}
-
-// K3.  Thread t adds point pair t of the block's tile; X at vectors 0-2 of
-// a point (P's tile slot a, Q's b), Y at 3-5, Z at 6-8.  The products of X
-// come first, then those of Y and Z; a coordinate's slots take temporaries
-// once its last product is done, so at most four 12-word temporaries are
-// live in registers beside the product being taken.  X3 waits in b's Z slot
-// until t3 leaves a's X slot.  The block then copies the tile of results
-// out of the P slots.
+// K3.  Thread t adds point pair t of the block's tile (curve.cuh
+// add_staged: P's tile slot gets the sum, Q's holds temporaries); the block
+// then copies the tile of results out of the P slots.
 template <int T>
 __global__ void __launch_bounds__(T, 512 / T) proj_add_kernel(
     const uint4* __restrict__ p, const uint4* __restrict__ q, uint4* __restrict__ out,
@@ -111,42 +82,10 @@ __global__ void __launch_bounds__(T, 512 / T) proj_add_kernel(
     tq[k] = __ldg(q + k);
   }
   __syncthreads();
-  if (threadIdx.x < m) {
-    uint4* const a = tp + threadIdx.x * kVecs;
-    uint4* const b = tq + threadIdx.x * kVecs;
-    uint4 *const ax = a, *const ay = a + 3, *const az = a + 6;
-    uint4 *const bx = b, *const by = b + 3, *const bz = b + 6;
-    const Elt t0 = mul(lds(ax), lds(bx));
-    const Elt r3 = mul(add(lds(ax), lds(ay)), add(lds(bx), lds(by)));  // t3 + t0 + t1
-    const Elt r5 = mul(add(lds(ax), lds(az)), add(lds(bx), lds(bz)));  // t5 + t0 + t2
-    sts(ax, r3);
-    sts(bx, r5);
-    const Elt t1 = mul(lds(ay), lds(by));
-    const Elt t2 = mul(lds(az), lds(bz));
-    sts(by, sub(mul(add(lds(ay), lds(az)), add(lds(by), lds(bz))), add(t1, t2)));  // t4
-    sts(ax, sub(lds(ax), add(t0, t1)));                                             // t3
-    const Elt t5 = sub(lds(bx), add(t0, t2));
-    sts(bx, add(add(t0, t0), t0));                                                  // 3 t0
-    const Elt bt2 = times_b3(t2);
-    const Elt z3t = add(t1, bt2);
-    const Elt t1m = sub(t1, bt2);
-    const Elt y3t = times_b3(t5);
-    sts(bz, mul(lds(ax), t1m));
-    sts(bz, sub(lds(bz), mul(lds(by), y3t)));                        // X3
-    sts(ay, add(mul(y3t, lds(bx)), mul(t1m, z3t)));                 // Y3
-    sts(az, add(mul(z3t, lds(by)), mul(lds(bx), lds(ax))));         // Z3
-    sts(ax, lds(bz));
-  }
+  if (threadIdx.x < m) add_staged(tp + threadIdx.x * kVecs, tq + threadIdx.x * kVecs);
   __syncthreads();
   out += first * kVecs;
   for (uint32_t k = threadIdx.x; k < m * kVecs; k += T) out[k] = tp[k];
-}
-
-__device__ __forceinline__ Elt sel(bool c, const Elt& a, const Elt& b) {
-  Elt r;
-#pragma unroll
-  for (int j = 0; j < N; j++) r.w[j] = c ? a.w[j] : b.w[j];
-  return r;
 }
 
 // Element v of lane `src` of this thread's group of four lanes.

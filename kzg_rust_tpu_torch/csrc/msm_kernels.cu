@@ -1,11 +1,12 @@
 // The fixed-base GLV MSM of the prover for Hopper (sm_90a): the scalar
-// recoding (M1) and the digit-selected mixed-add accumulation over the
-// affine window table (M2), plus the mixed add alone as a launcher.
+// recoding (M1) and the whole MSM after it, the digit-selected mixed-add
+// accumulation over the affine window table and its reduction to one point
+// (M2), plus the mixed add alone as a launcher.
 //
 // M1, kzg_glv_digits, replaces the XLA program of the JAX package's
 // kzg_rust_tpu/ops/msm.py:187 glv_digits_from_limbs (with glv_decompose_limbs
-// :133 and _digits_base32 :165).  M2, kzg_msm_glv_accumulate, replaces the
-// gather of :202 _msm_core_glv and the masked mixed-add scan of
+// :133 and _digits_base32 :165).  M2, kzg_msm_glv, replaces the gather of
+// :202 _msm_core_glv and the masked mixed-add scan and fold of
 // kzg_rust_tpu/ops/curve.py:350 fold_reduce_mixed.  The JAX package never
 // wrote either in Pallas; the TPU ran them as XLA programs.
 //
@@ -18,29 +19,53 @@
 // integers as the JAX program, so the same digits.  Bound: bytes (32 in,
 // 52 out a scalar); the work is a few hundred multiply-adds a scalar.
 //
-// M2.  Thread t owns column t of the 52 N selections s = t, t + F, t + 2F,
-// ..., s = (half * 26 + window) * N + point, the layout of the digits
-// [2, 26, N].  For each selection with a nonzero digit d and a base that is
-// not infinity it loads the affine entry table[window, |d| - 1, point]
-// directly (the JAX package's one-hot masked reduction over the 16 multiples
-// answered XLA's slow gather on the TPU and is not carried over), negates Y
-// for d < 0, multiplies X by beta for the phi half (the GLV endomorphism
-// phi(x, y) = (beta x, y) commutes with the multiples), and mixed-adds it
-// onto its accumulator, which starts at infinity.  It writes F projective
-// partial sums [F, 3, 12]; curve.sum_points (K3) folds them to one point.
-// Bound: operations, 11 Fp products a selection (12 in the phi half) at
-// ~600 32-bit multiply-adds each, against 96 bytes of table read; but each
-// column runs its ~52 N / F dependent adds one after another, so the kernel
-// is latency-bound: F is the card's resident thread count (chosen by the
-// caller, ops/msm.py), so that one wave covers every column.
+// M2.  A accumulators ("accs"), one a thread, in blocks of T threads.
+// Accumulator a takes the selections s = a, a + A, a + 2A, ... of the 52 N,
+// s = (half * 26 + window) * N + point, the layout of the digits [2, 26, N].
+// For each selection with a nonzero digit d and a base that is not infinity
+// it loads the affine entry table[window, |d| - 1, point] directly (the JAX
+// package's one-hot masked reduction over the 16 multiples answered XLA's
+// slow gather on the TPU and is not carried over), negates Y for d < 0,
+// multiplies X by beta for the phi half (the GLV endomorphism phi(x, y) =
+// (beta x, y) commutes with the multiples), and mixed-adds it onto its
+// accumulator; the accumulator's first selection is taken as it is,
+// (x, y, 1), which saves a quarter of the adds at mainnet width, and one
+// that takes none stays at infinity.  Then each block sums its
+// accumulators with the complete add as a halving tree in shared memory
+// (ops/curve.py sum_points' order), writes its sum, and takes a ticket
+// (__threadfence, then atomicAdd on a device word); the block that takes
+// the last one sums the blocks' sums with the same tree, writes the MSM
+// [3, 12] and sets the word back to 0, so the next launch, and a replayed
+// CUDA graph, find it at 0.  ops/msm.py msm_point_plain follows the same
+// grouping and order, so the point is the same words.
 //
-// What the design does about it.  Everything lives in registers: the
-// accumulator and the entry are 60 words, and the formula's temporaries die
-// at their last use (curve.cuh add_mixed).  Neighbouring threads take
-// neighbouring points of one window, so their digit and mask loads
-// coalesce; their table entries are 96-byte rows at different multiples,
-// three sectors each.  Tensor cores and TMA have nothing to offer: every
-// operand is a different 12-word integer.
+// What bounds M2.  Operations: 11 Fp products a selection (12 in the phi
+// half) at ~600 32-bit multiply-adds each, against 96 bytes of table read;
+// the reduction adds A - 1 complete adds of 12 products.  Each accumulator
+// runs its ~52 N / A dependent adds one after another, and the tree's
+// levels run one after another on fewer and fewer points, so both parts
+// are also bound by latency: A is the card's resident thread count.
+//
+// What the design does about it.
+// - The accumulator and the formula's temporaries live in registers
+//   (curve.cuh add_mixed).  The next selection's 96-byte entry is in
+//   flight into the thread's two-entry ring in shared memory (cp.async)
+//   while the current one is added, and the digit after it is in flight
+//   into a register; a thread steps its (half * 26 + window, point)
+//   without dividing.  Neighbouring threads take neighbouring points of
+//   one window, so their digit and mask loads coalesce; the entries are
+//   96-byte rows at different multiples.
+// - One launch instead of M2 and a 16-launch K3 tree: the accumulators
+//   never leave the SM, and the reduction's levels need no host.
+// - In the trees, each complete add is spread over a group of 2, 4 or 8
+//   lanes (curve.cuh add_lanes): its twelve products are two levels of six
+//   independent ones.  A level takes the most lanes an add that keep it to
+//   one round of the block, so a wide level wastes few lanes and a narrow
+//   one waits for two products instead of the twelve of K3's one-thread
+//   add (curve.cuh add_staged).  The caller picks A and T (ops/msm.py, from
+//   chip_smoke.py's sweep on the card).
+// - Tensor cores and TMA have nothing to offer: every operand is a
+//   different 12-word integer, and the entries are gathered, not tiled.
 //
 // C interface as in field_kernels.cu: launch on the given stream, return
 // cudaGetLastError().  Point and scalar operands start on 16 bytes (the
@@ -58,6 +83,10 @@ constexpr int kWindows = 26;    // signed base-32 windows of a 128-bit GLV half
 constexpr int kMultiples = 16;  // |d| in 1..16
 constexpr int kPointVecs = 9;   // 16-byte vectors of a projective point
 constexpr int kEntryVecs = 6;   // of an affine table entry (X, Y)
+constexpr int kScratchVecs = 36;  // of a lane group's scratch in M2's trees (12 coordinates)
+// M2's blocks at most (ops/msm.py MAX_BLOCKS): the last block holds every
+// block's sum in shared memory, 144 bytes each.
+constexpr int kMaxBlocks = 1024;
 
 // The GLV constants of glv.py (checked against it by the CPU tests, which
 // parse this file): G1C = round((z^2 - 1) 2^264 / r), z^2, z^2 - 1 and
@@ -214,14 +243,116 @@ __global__ void __launch_bounds__(128) glv_digits_kernel(const uint4* __restrict
   recode32(mag2, neg2, out + (size_t)kWindows * m + i, m);
 }
 
-// M2: see the head of the file.  table [26, 16, n, 2, 12], inf [n] (0 or 1),
-// digits [2, 26, n] -> out [folds, 3, 12].
+// cp.async of 16 bytes from device memory into shared memory (L2 only), and
+// the group fences: every copy of a thread lands before its wait_group
+// returns, the newest N groups excepted.
+__device__ __forceinline__ void copy_async(uint4* dst, const uint4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One selection of a thread: s = hw * n + point, hw = half * 26 + window.
+struct Sel {
+  uint32_t s, point, hw;
+  int d;  // its digit; 0 past the end, for a zero digit and for an infinity base
+};
+
+__device__ __forceinline__ void load_digit(Sel& q, const int8_t* __restrict__ digits,
+                                           const uint8_t* __restrict__ inf, uint32_t total) {
+  q.d = q.s < total && !inf[q.point] ? digits[q.s] : 0;
+}
+
+// The next selection of the thread, accs further on, without a division.
+__device__ __forceinline__ Sel step(Sel q, uint32_t accs, uint32_t step_hw, uint32_t step_point,
+                                    uint32_t n) {
+  q.s += accs;
+  q.hw += step_hw;
+  q.point += step_point;
+  if (q.point >= n) {
+    q.point -= n;
+    q.hw++;
+  }
+  return q;
+}
+
+// The table entry table[window, |d| - 1, point] of a selection into
+// dst[0..5], when its digit is not 0.
+__device__ __forceinline__ void fetch_entry(uint4* dst, const Sel& q, const uint4* __restrict__ table,
+                                            uint32_t n) {
+  if (q.d == 0) return;
+  const uint32_t w = q.hw < kWindows ? q.hw : q.hw - kWindows;
+  const uint32_t mag = q.d < 0 ? -q.d : q.d;
+  const uint4* e = table + ((size_t)(w * kMultiples + mag - 1) * n + q.point) * kEntryVecs;
+#pragma unroll
+  for (int k = 0; k < kEntryVecs; k++) copy_async(dst + k, e + k);
+}
+
+// The adds i < h of a tree level, slot i += slot i + h: group g of G lanes
+// takes adds g, g + T / G, ... (curve.cuh add_lanes, with its scratch).
+template <int T, int G>
+__device__ __forceinline__ void tree_level(uint4* slots, uint32_t h, uint4* scratch) {
+  const uint32_t g = threadIdx.x / G;
+  const int r = threadIdx.x % G;
+  const unsigned mask = ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
+  for (uint32_t i = g; i < h; i += T / G)
+    add_lanes<G>(slots + i * kPointVecs, slots + (i + h) * kPointVecs, scratch + g * kScratchVecs, r, mask);
+}
+
+// The halving tree over the w points of slots[0..w-1] (9 vectors each):
+// slot i += slot i + w/2 for i < w/2, an odd width carrying its last point
+// to slot w/2, until slot 0 holds the sum: ops/curve.py sum_points' order.
+// Each level spreads an add over the most lanes (2, 4 or 8) that keep the
+// level to one round of the block's threads: a wide level then wastes the
+// fewest lanes and instructions, a narrow one waits for two products
+// instead of twelve.  Every thread of the block calls it.  Not inlined:
+// its registers are then allocated apart from the accumulation loop's,
+// which spills less (ptxas, chip_smoke.py phase 1).
 template <int T>
-__global__ void __launch_bounds__(T) msm_glv_accumulate_kernel(
+__device__ __noinline__ void tree_sum(uint4* slots, uint32_t w, uint4* scratch) {
+  while (w > 1) {
+    const uint32_t h = w / 2;
+    if (8 * h <= T)
+      tree_level<T, 8>(slots, h, scratch);
+    else if (4 * h <= T)
+      tree_level<T, 4>(slots, h, scratch);
+    else
+      tree_level<T, 2>(slots, h, scratch);
+    __syncthreads();
+    if (w & 1) {
+      if (threadIdx.x < kPointVecs) slots[h * kPointVecs + threadIdx.x] = slots[(w - 1) * kPointVecs + threadIdx.x];
+      __syncthreads();
+    }
+    w = h + (w & 1);
+  }
+}
+
+// M2: see the head of the file.  table [26, 16, n, 2, 12], inf [n] (0 or 1),
+// digits [2, 26, n] -> out [3, 12], the MSM; partials [gridDim.x, 3, 12] is
+// scratch for the blocks' sums and ticket a zero word that the last block
+// sets back to zero.  step_hw and step_point are accs / n and accs % n.
+// At most 384 / T blocks of T threads share an SM's registers (168 a
+// thread), so that 384 accumulators an SM run in one wave.
+template <int T>
+__global__ void __launch_bounds__(T, 384 / T) msm_glv_kernel(
     const uint4* __restrict__ table, const uint8_t* __restrict__ inf,
-    const int8_t* __restrict__ digits, uint4* __restrict__ out, uint32_t n, uint32_t folds) {
-  const uint32_t t = blockIdx.x * T + threadIdx.x;
-  if (t >= folds) return;
+    const int8_t* __restrict__ digits, uint4* __restrict__ partials, unsigned* __restrict__ ticket,
+    uint4* __restrict__ out, uint32_t n, uint32_t accs, uint32_t step_hw, uint32_t step_point) {
+  extern __shared__ uint4 smem[];
+  __shared__ bool last;
+  const uint32_t nblocks = gridDim.x;
+  // The trees' slots (max(T, blocks) points), then the lane groups'
+  // scratch.  The prefetch ring, two entries a thread, lies over the slots:
+  // it is spent before the first slot is written.
+  uint4* const slots = smem;
+  uint4* const scratch = smem + (size_t)max((uint32_t)T, nblocks) * kPointVecs;
+  uint4* const ring = smem + threadIdx.x * 2 * kEntryVecs;
+
   Elt zero, one, beta;
 #pragma unroll
   for (int j = 0; j < Fp::N; j++) {
@@ -230,25 +361,70 @@ __global__ void __launch_bounds__(T) msm_glv_accumulate_kernel(
     beta.w[j] = beta_mont_word(j);
   }
   Elt X = zero, Y = one, Z = zero;  // infinity
+  const uint32_t a = blockIdx.x * T + threadIdx.x;
   const uint32_t total = 2u * kWindows * n;
-  for (uint32_t s = t; s < total; s += folds) {
-    const int d = digits[s];
-    const uint32_t i = s % n;
-    if (d == 0 || inf[i]) continue;
-    const uint32_t hw = s / n;  // half * 26 + window
-    const uint32_t w = hw % kWindows;
-    const uint32_t mag = d < 0 ? -d : d;
-    const uint4* e = table + ((size_t)(w * kMultiples + mag - 1) * n + i) * kEntryVecs;
-    Elt x = ldg(e);
-    Elt y = ldg(e + 3);
-    if (hw >= kWindows) x = mul(x, beta);
-    if (d < 0) y = sub(zero, y);
-    add_mixed(X, Y, Z, x, y);
+  bool started = false;  // the first selection is taken as (x, y, 1), not added onto infinity
+  if (a < accs) {
+    // Selections k (added now), k + 1 (its entry in flight into the ring)
+    // and k + 2 (its digit in flight).
+    Sel cur = {a, a % n, a / n, 0};
+    load_digit(cur, digits, inf, total);
+    Sel nxt = step(cur, accs, step_hw, step_point, n);
+    load_digit(nxt, digits, inf, total);
+    fetch_entry(ring, cur, table, n);
+    copy_commit();
+    for (uint32_t k = 0; cur.s < total; k++) {
+      Sel after = step(nxt, accs, step_hw, step_point, n);
+      load_digit(after, digits, inf, total);
+      fetch_entry(ring + ((k + 1) & 1) * kEntryVecs, nxt, table, n);
+      copy_commit();
+      copy_wait<1>();
+      if (cur.d != 0) {
+        const uint4* e = ring + (k & 1) * kEntryVecs;
+        Elt x = lds(e);
+        Elt y = lds(e + 3);
+        if (cur.hw >= kWindows) x = mul(x, beta);
+        if (cur.d < 0) y = sub(zero, y);
+        if (started) {
+          add_mixed(X, Y, Z, x, y);
+        } else {
+          X = x;
+          Y = y;
+          Z = one;
+          started = true;
+        }
+      }
+      cur = nxt;
+      nxt = after;
+    }
   }
-  uint4* o = out + (size_t)t * kPointVecs;
-  stg(o, X);
-  stg(o + 3, Y);
-  stg(o + 6, Z);
+  copy_wait<0>();
+  __syncthreads();  // the ring is spent
+
+  // The block's accumulators (m of them in a ragged last block) to its sum.
+  const uint32_t m = min((uint32_t)T, accs - blockIdx.x * T);
+  if (threadIdx.x < m) {
+    uint4* o = slots + threadIdx.x * kPointVecs;
+    sts(o, X);
+    sts(o + 3, Y);
+    sts(o + 6, Z);
+  }
+  __syncthreads();
+  tree_sum<T>(slots, m, scratch);
+
+  // The last block to finish sums the blocks' sums.
+  if (threadIdx.x < kPointVecs) partials[(size_t)blockIdx.x * kPointVecs + threadIdx.x] = slots[threadIdx.x];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == nblocks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (uint32_t k = threadIdx.x; k < nblocks * kPointVecs; k += T) slots[k] = __ldcg(partials + k);
+  __syncthreads();
+  tree_sum<T>(slots, nblocks, scratch);
+  if (threadIdx.x < kPointVecs) out[threadIdx.x] = slots[threadIdx.x];
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
 // The mixed add alone: out[i] = p[i] + q[i], p [n, 3, 12] projective, q
@@ -271,12 +447,33 @@ bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 unsigned blocks(long long n, int t) { return (unsigned)((n + t - 1) / t); }
 
+// Dynamic shared memory of one M2 block: the larger of the prefetch ring
+// and the trees' slots with the lane groups' scratch.
+size_t msm_smem_bytes(int t, long long nblocks) {
+  const size_t ring = (size_t)t * 2 * kEntryVecs;
+  const size_t trees = (size_t)(nblocks > t ? nblocks : t) * kPointVecs + (size_t)(t / 2) * kScratchVecs;
+  return 16 * (ring > trees ? ring : trees);
+}
+
 template <int T>
-void launch_accumulate(const void* table, const void* inf, const void* digits, void* out,
-                       long long n, long long folds, cudaStream_t s) {
-  msm_glv_accumulate_kernel<T><<<blocks(folds, T), T, 0, s>>>(
-      (const uint4*)table, (const uint8_t*)inf, (const int8_t*)digits, (uint4*)out,
-      (uint32_t)n, (uint32_t)folds);
+int launch_msm(const void* table, const void* inf, const void* digits, void* partials, void* ticket,
+               void* out, long long n, long long accs, cudaStream_t s) {
+  const long long nblocks = (accs + T - 1) / T;
+  const size_t smem = msm_smem_bytes(T, nblocks);
+  // Raised once per instantiation and size, outside any graph capture: the
+  // first launch of a process is never captured (chip_smoke.py and the path
+  // warm up).
+  static size_t raised = 0;
+  if (smem > raised) {
+    const cudaError_t e = cudaFuncSetAttribute(msm_glv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = smem;
+  }
+  msm_glv_kernel<T><<<(unsigned)nblocks, T, smem, s>>>(
+      (const uint4*)table, (const uint8_t*)inf, (const int8_t*)digits, (uint4*)partials,
+      (unsigned*)ticket, (uint4*)out, (uint32_t)n, (uint32_t)accs, (uint32_t)(accs / n),
+      (uint32_t)(accs % n));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -288,17 +485,18 @@ extern "C" int kzg_glv_digits(const void* scalars, void* out, long long m, void*
   return (int)cudaGetLastError();
 }
 
-extern "C" int kzg_msm_glv_accumulate(const void* table, const void* inf, const void* digits,
-                                      void* out, long long n, long long folds,
-                                      void* stream) {  // M2
-  if (!aligned(table) || !aligned(out)) return (int)cudaErrorInvalidValue;
+extern "C" int kzg_msm_glv(const void* table, const void* inf, const void* digits, void* partials,
+                           void* ticket, void* out, long long n, long long accs, long long block,
+                           void* stream) {  // M2
+  if (!aligned(table) || !aligned(partials) || !aligned(out)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || accs < 1 || block < 1 || (accs + block - 1) / block > kMaxBlocks) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (block_threads(folds)) {
-    case 128: launch_accumulate<128>(table, inf, digits, out, n, folds, s); break;
-    case 64: launch_accumulate<64>(table, inf, digits, out, n, folds, s); break;
-    default: launch_accumulate<32>(table, inf, digits, out, n, folds, s); break;
+  switch (block) {
+    case 128: return launch_msm<128>(table, inf, digits, partials, ticket, out, n, accs, s);
+    case 256: return launch_msm<256>(table, inf, digits, partials, ticket, out, n, accs, s);
+    case 384: return launch_msm<384>(table, inf, digits, partials, ticket, out, n, accs, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int kzg_proj_add_mixed(const void* p, const void* q, void* out, long long n,

@@ -59,7 +59,7 @@ ENTRY_POINTS = {
     "kzg_proj_double": ("curve_kernels.cu", [_P, _P, _I64, _P]),
     "kzg_proj_double_chain": ("curve_kernels.cu", [_P, _P, _I64, _I64, _P]),
     "kzg_glv_digits": ("msm_kernels.cu", [_P, _P, _I64, _P]),
-    "kzg_msm_glv_accumulate": ("msm_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _P]),
+    "kzg_msm_glv": ("msm_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
 }
 

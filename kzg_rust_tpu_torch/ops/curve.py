@@ -258,17 +258,19 @@ def proj_double_chain(p, steps: int, out=None):
     return out
 
 
-def sum_points(points):
-    """Sum ``[W, ..., 3, 12]`` points over axis 0 with K3 as a halving tree:
-    each level adds the first half to the second (contiguous slices) and an
-    odd width carries its last row to the next level, W - 1 adds in
-    ceil(log2 W) launches.  Serves both of the JAX package's reductions,
-    ``curve.fold_reduce`` (a TPU compile-size device: one scan plus a
-    fixed-width ladder) and ``verify_kernels._reduce_axis0`` (this same
-    tree, whose order it keeps)."""
+def sum_points(points, add=None):
+    """Sum ``[W, ..., 3, 12]`` points over axis 0 as a halving tree: each
+    level adds the first half to the second (contiguous slices) and an odd
+    width carries its last row to the next level, W - 1 adds in
+    ceil(log2 W) calls of ``add`` (K3, :func:`proj_add`, by default).
+    Serves both of the JAX package's reductions, ``curve.fold_reduce`` (a
+    TPU compile-size device: one scan plus a fixed-width ladder) and
+    ``verify_kernels._reduce_axis0`` (this same tree, whose order it keeps);
+    M2's trees (``csrc/msm_kernels.cu``) keep it too."""
+    add = add or proj_add
     while points.shape[0] > 1:
         h = points.shape[0] // 2
-        red = proj_add(points[:h], points[h : 2 * h])
+        red = add(points[:h], points[h : 2 * h])
         if points.shape[0] % 2:
             red = torch.cat([red, points[2 * h :]])
         points = red

@@ -79,9 +79,9 @@ def gen_table_from_jax(table, device="cpu") -> torch.Tensor:
 def msm_context_from_jax(table, inf_mask, device="cpu"):
     """A :class:`~.msm.MsmContext` from the JAX package's GLV table
     ``[26, 16, N, 2, 32]`` (affine Montgomery Fp, the same integers in both
-    packages) and ``inf_mask`` [N], with the port's partial-sum count."""
-    from .msm import MsmContext, default_fold
+    packages) and ``inf_mask`` [N], with the port's M2 configuration."""
+    from .msm import MsmContext, msm_config
 
     inf = torch.from_numpy(np.asarray(inf_mask, dtype=bool).copy()).to(device)
     n = inf.shape[0]
-    return MsmContext(n, fp_from_jax(table, device), inf, default_fold(n, device))
+    return MsmContext(n, fp_from_jax(table, device), inf, msm_config(n, device))

@@ -9,19 +9,19 @@ Counterpart of the JAX package's ``ops/msm.py``.  Two parts:
   ``[26, 16, N, 2, 12]`` affine table of ``d 32^j P_i`` (d = 1..16) built by
   :meth:`MsmContext.build_from_points` as a launch sequence of the ported
   kernels (one K4 chain launch for the window bases, 15 K3 launches for the
-  multiples, one batched Fp inversion, two K1 launches).  An MSM is then M1
-  (:func:`glv_digits_from_limbs`, ``csrc/msm_kernels.cu``
+  multiples, one batched Fp inversion, two K1 launches).  An MSM is then
+  two launches: M1 (:func:`glv_digits_from_limbs`, ``csrc/msm_kernels.cu``
   ``kzg_glv_digits``: the device GLV split and signed base-32 recoding of
-  every scalar), M2 (:func:`msm_accumulate`, ``kzg_msm_glv_accumulate``: the
-  digit-selected table entries mixed-added into ``fold`` partial sums) and
-  :func:`curve.sum_points` (K3) over the partials.
+  every scalar) and M2 (:func:`msm_point`, ``kzg_msm_glv``: the
+  digit-selected table entries mixed-added into ``accumulators`` sums, which
+  the kernel itself reduces to the one point).
 * The signed base-16 window select of verification's generator multiple
   (stage 2, ``verify_kernels.gen_mult``): a ``[64, 8, 1, 3, 12]`` table of
   the G1 generator.
 
 On CPU tensors M1 and M2 run their plain versions (``*_plain``), which give
-the same digits and the same partial sums word for word; on CUDA tensors
-they launch their kernels or raise.
+the same digits and the same point word for word; on CUDA tensors they
+launch their kernels or raise.
 """
 
 from __future__ import annotations
@@ -44,14 +44,19 @@ GLV_WINDOW_BITS = glv.WINDOW_BITS_32  # 5
 GLV_NUM_WINDOWS = glv.NUM_WINDOWS_GLV32  # 26
 GLV_NUM_MULTIPLES = 16  # signed base-32 digits: |d| in 1..16
 
-# M2's partial sums on the card: one per resident thread, so that one wave
-# covers every column of the 52 N selections.  The kernel takes 163
-# registers a thread (ptxas, sm_90a), so 3 blocks of 128 threads fit an SM;
-# on the H100 that count also gave the least M2 time of 128-512 an SM
-# (chip_smoke.py phase 2's sweep, PERF.md).  On the CPU the plain version
-# takes CPU_FOLD columns.
-RESIDENT_THREADS_PER_SM = 384
-CPU_FOLD = 64
+# M2 on the card: one accumulator a thread, BLOCK_THREADS threads a block
+# and ACCUMULATORS_PER_SM accumulators an SM, so that one wave covers every
+# accumulator.  Chosen by chip_smoke.py phase 2's sweep on the H100
+# (PERF.md).  On the CPU the plain version takes CPU_ACCUMULATORS in blocks
+# of CPU_BLOCK.  KERNEL_BLOCKS are the block sizes kzg_msm_glv is built
+# for, and MAX_BLOCKS its most blocks (the last block holds every block's
+# sum in shared memory), both shared with csrc/msm_kernels.cu.
+ACCUMULATORS_PER_SM = 384
+BLOCK_THREADS = 384
+KERNEL_BLOCKS = (128, 256, 384)
+MAX_BLOCKS = 1024
+CPU_ACCUMULATORS = 64
+CPU_BLOCK = 16
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +142,7 @@ def recode_glv_host(scalars) -> tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def _check_msm_operands(table, inf_mask, digits, fold):
+def _check_msm_operands(table, inf_mask, digits, accumulators, block):
     n = table.shape[2]
     if table.dtype != torch.int32 or table.shape != (GLV_NUM_WINDOWS, GLV_NUM_MULTIPLES, n, 2, FP.nwords):
         raise ValueError(f"msm: expected an int32 [26, 16, N, 2, 12] table, got {table.dtype} {tuple(table.shape)}")
@@ -145,24 +150,27 @@ def _check_msm_operands(table, inf_mask, digits, fold):
         raise ValueError(f"msm: expected a bool [{n}] infinity mask, got {inf_mask.dtype} {tuple(inf_mask.shape)}")
     if digits.dtype != torch.int8 or digits.shape != (2, GLV_NUM_WINDOWS, n):
         raise ValueError(f"msm: expected int8 [2, 26, {n}] digits, got {digits.dtype} {tuple(digits.shape)}")
-    if not 1 <= fold <= 2 * GLV_NUM_WINDOWS * n:
-        raise ValueError(f"msm: fold {fold} outside [1, {2 * GLV_NUM_WINDOWS * n}]")
+    if not 1 <= accumulators <= 2 * GLV_NUM_WINDOWS * n:
+        raise ValueError(f"msm: {accumulators} accumulators outside [1, {2 * GLV_NUM_WINDOWS * n}]")
+    if block < 1 or -(-accumulators // block) > MAX_BLOCKS:
+        raise ValueError(f"msm: {accumulators} accumulators in blocks of {block}: more than {MAX_BLOCKS} blocks")
     if inf_mask.device != table.device or digits.device != table.device:
         raise ValueError("msm: operands on different devices")
 
 
-def msm_accumulate_plain(table, inf_mask, digits, fold: int) -> torch.Tensor:
-    """Plain version of M2: column t of the 52 N selections s = t, t + fold,
-    ... (s = (half * 26 + window) * N + point) mixed-added in order onto an
-    accumulator that starts at infinity, skipping zero digits and infinity
-    bases; returns the [fold, 3, 12] partial sums."""
+def msm_accumulate_plain(table, inf_mask, digits, accumulators: int) -> torch.Tensor:
+    """The accumulation of M2's plain version: accumulator a takes the
+    selections s = a, a + accumulators, ... (s = (half * 26 + window) * N +
+    point), skipping zero digits and infinity bases: the first one as it is,
+    (x, y, 1), then each mixed-added in order; an accumulator that takes
+    none is infinity.  Returns the ``[accumulators, 3, 12]`` sums."""
     w, m, n = table.shape[:3]
     dev = table.device
     total = 2 * w * n
-    steps = -(-total // fold)
-    pad = steps * fold - total
+    steps = -(-total // accumulators)
+    pad = steps * accumulators - total
     d = F.pad(digits.reshape(-1).to(torch.int64), (0, pad))
-    s = torch.arange(steps * fold, device=dev)
+    s = torch.arange(steps * accumulators, device=dev)
     point = s % n
     window = (s // n) % w
     phi = s // n >= w
@@ -172,55 +180,96 @@ def msm_accumulate_plain(table, inf_mask, digits, fold: int) -> torch.Tensor:
     flat = table.reshape(w * m * n, 2, FP.nwords)
     beta = FP.const(C.BETA_MONT, dev)
     one = FP.const("one_mont", dev)
-    acc = torch.stack([torch.zeros_like(one), one, torch.zeros_like(one)]).expand(fold, 3, FP.nwords)
+    acc = torch.stack([torch.zeros_like(one), one, torch.zeros_like(one)]).expand(accumulators, 3, FP.nwords)
+    started = torch.zeros(accumulators, dtype=torch.bool, device=dev)
     for k in range(steps):
-        cols = slice(k * fold, (k + 1) * fold)
+        cols = slice(k * accumulators, (k + 1) * accumulators)
+        if not valid[cols].any():
+            continue
         e = flat[entry[cols]]
         x = torch.where(phi[cols, None], L.mont_mul_plain(FP, e[:, 0], beta), e[:, 0])
         y = torch.where((d[cols] < 0)[:, None], L.sub_mod_plain(FP, torch.zeros_like(one), e[:, 1]), e[:, 1])
-        added = C.proj_add_mixed_plain(acc, torch.stack([x, y], dim=-2))
-        acc = torch.where(valid[cols, None, None], added, acc)
+        taken = torch.stack([x, y, one.expand_as(x)], dim=-2)
+        if started.any():
+            taken = torch.where(started[:, None, None], C.proj_add_mixed_plain(acc, taken[:, :2]), taken)
+        acc = torch.where(valid[cols, None, None], taken, acc)
+        started |= valid[cols]
     return acc.contiguous()
 
 
-def msm_accumulate(table, inf_mask, digits, fold: int) -> torch.Tensor:
-    """M2: the ``[fold, 3, 12]`` partial sums of the selections of
-    ``digits`` [2, 26, N] int8 over ``table`` [26, 16, N, 2, 12] (affine,
-    Montgomery) and ``inf_mask`` [N] bool (see :func:`msm_accumulate_plain`)."""
-    _check_msm_operands(table, inf_mask, digits, fold)
+def block_sums_plain(acc, block: int) -> torch.Tensor:
+    """``[A, 3, 12]`` accumulators -> ``[ceil(A / block), 3, 12]``: each
+    block of ``block`` rows (the last one ragged) summed by the halving tree
+    of :func:`curve.sum_points` with plain adds, as M2's blocks do."""
+    a = acc.shape[0]
+    full = a // block
+    sums = []
+    if full:
+        rows = acc[: full * block].reshape(full, block, 3, FP.nwords).transpose(0, 1)
+        sums.append(C.sum_points(rows, add=C.proj_add_plain))
+    if a % block:
+        sums.append(C.sum_points(acc[full * block :], add=C.proj_add_plain)[None])
+    return torch.cat(sums)
+
+
+def msm_point_plain(table, inf_mask, digits, accumulators: int, block: int) -> torch.Tensor:
+    """Plain version of M2: the accumulation (:func:`msm_accumulate_plain`),
+    each block's sum (:func:`block_sums_plain`), then the halving tree over
+    the blocks' sums, all with plain adds in the kernel's grouping and order,
+    so the projective point is the kernel's word for word."""
+    acc = msm_accumulate_plain(table, inf_mask, digits, accumulators)
+    return C.sum_points(block_sums_plain(acc, block), add=C.proj_add_plain)
+
+
+def msm_point(table, inf_mask, digits, accumulators: int, block: int, ticket=None) -> torch.Tensor:
+    """M2: the MSM of the selections of ``digits`` [2, 26, N] int8 over
+    ``table`` [26, 16, N, 2, 12] (affine, Montgomery) and ``inf_mask`` [N]
+    bool, as one projective Montgomery point [3, 12]: ``accumulators`` sums
+    in blocks of ``block``, each block's sum, then the sum of those (see
+    :func:`msm_point_plain`), in one launch of ``kzg_msm_glv`` on the card.
+
+    On the card ``ticket`` is a zero int32 [1] on the table's device, by
+    which the kernel's last block finds itself and which it sets back to 0
+    (:class:`MsmContext` owns one): the launches that share a ticket must
+    run in order, on one stream."""
+    _check_msm_operands(table, inf_mask, digits, accumulators, block)
     if table.device.type == "cpu":
-        return msm_accumulate_plain(table, inf_mask, digits, fold)
-    table = table.contiguous()
-    out = torch.empty((fold, 3, FP.nwords), dtype=torch.int32, device=table.device)
+        return msm_point_plain(table, inf_mask, digits, accumulators, block)
+    if block not in KERNEL_BLOCKS:
+        raise ValueError(f"msm: kzg_msm_glv takes blocks of {KERNEL_BLOCKS} threads, got {block}")
+    if ticket is None or ticket.dtype != torch.int32 or ticket.numel() != 1 or ticket.device != table.device:
+        raise ValueError("msm: the card's M2 needs a zero int32 [1] ticket on the table's device")
+    dev = table.device
+    partials = torch.empty((-(-accumulators // block), 3, FP.nwords), dtype=torch.int32, device=dev)
+    out = torch.empty((3, FP.nwords), dtype=torch.int32, device=dev)
     _build.launch(
-        "kzg_msm_glv_accumulate",
-        table.device,
-        table,
+        "kzg_msm_glv",
+        dev,
+        table.contiguous(),
         inf_mask.contiguous(),
         digits.contiguous(),
+        partials,
+        ticket,
         out,
         table.shape[2],
-        fold,
+        accumulators,
+        block,
     )
     return out
 
 
-def _msm_core_glv(table, inf_mask, digits, fold: int) -> torch.Tensor:
-    """One projective Montgomery point [3, 12]: M2's partial sums folded by
-    the K3 tree."""
-    return C.sum_points(msm_accumulate(table, inf_mask, digits, fold))
-
-
-def default_fold(n: int, device) -> int:
-    """M2's partial-sum count: the card's resident threads (its SM count
-    times RESIDENT_THREADS_PER_SM) on CUDA, CPU_FOLD on the CPU, at most the
-    52 N selections."""
+def msm_config(n: int, device) -> tuple[int, int]:
+    """M2's (accumulators, block) for an N-point table: on CUDA the card's
+    SM count times ACCUMULATORS_PER_SM in blocks of BLOCK_THREADS;
+    CPU_ACCUMULATORS in blocks of CPU_BLOCK on the CPU; at most the 52 N
+    selections."""
     device = torch.device(device)
     if device.type == "cuda":
-        fold = torch.cuda.get_device_properties(device).multi_processor_count * RESIDENT_THREADS_PER_SM
+        accs = torch.cuda.get_device_properties(device).multi_processor_count * ACCUMULATORS_PER_SM
+        block = BLOCK_THREADS
     else:
-        fold = CPU_FOLD
-    return max(1, min(2 * GLV_NUM_WINDOWS * n, fold))
+        accs, block = CPU_ACCUMULATORS, CPU_BLOCK
+    return max(1, min(2 * GLV_NUM_WINDOWS * n, accs)), block
 
 
 # ---------------------------------------------------------------------------
@@ -262,13 +311,15 @@ def build_glv_table(points: torch.Tensor):
 
 class MsmContext:
     """Per-settings device state: the GLV affine window table, the mask of
-    infinity bases, and M2's partial-sum count ``fold``."""
+    infinity bases, M2's configuration (:func:`msm_config`) and, on a card,
+    M2's ticket."""
 
-    def __init__(self, n: int, table, inf_mask, fold: int):
+    def __init__(self, n: int, table, inf_mask, config: tuple[int, int]):
         self.n = n
         self.table = table
         self.inf_mask = inf_mask
-        self.fold = fold
+        self.accumulators, self.block = config
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=table.device) if table.device.type == "cuda" else None
 
     @classmethod
     def build(cls, settings, device) -> "MsmContext":
@@ -278,17 +329,20 @@ class MsmContext:
     def build_from_points(cls, points_affine, device) -> "MsmContext":
         n = len(points_affine)
         table, inf_mask = build_glv_table(C.points_to_proj(points_affine, device))
-        return cls(n, table, inf_mask, default_fold(n, device))
+        return cls(n, table, inf_mask, msm_config(n, device))
+
+    def point(self, digits) -> torch.Tensor:
+        """M2 over this table: digits [2, 26, N] -> the MSM [3, 12]."""
+        return msm_point(self.table, self.inf_mask, digits, self.accumulators, self.block, self.ticket)
 
 
 def msm_fixed_base(ctx: MsmContext, scalars):
     """MSM over the fixed setup points (canonical Fr ints); returns a golden
     affine point or None, the same as ``g1_lincomb_naive`` (reference:
-    utils.rs:367-410).  Host recoding, then M2 and the K3 tree."""
+    utils.rs:367-410).  Host recoding, then M2."""
     d1, d2 = recode_glv_host(scalars)
     digits = torch.from_numpy(np.stack([d1, d2])).to(ctx.table.device)
-    out = _msm_core_glv(ctx.table, ctx.inf_mask, digits, ctx.fold)
-    return C.proj_to_points(out[None].cpu())[0]
+    return C.proj_to_points(ctx.point(digits)[None].cpu())[0]
 
 
 # ---------------------------------------------------------------------------

@@ -13,20 +13,20 @@ sequence of the hand-written kernels with no host round trip inside:
   blob's element there and the in-domain quotient.  The JAX program picks
   the branch on the device with ``lax.cond``; the host knows z and picks it
   here (the caller passes the root's index), with the same results;
-* the MSM: M1 (the digits), M2 (the partial sums) and the K3 tree.
+* the MSM: M1 (the digits) and M2 (the point: its accumulation and
+  reduction in one launch).
 
 Both return device tensors; the caller fetches them in one copy.  Points
 stay projective Montgomery words (the host converts the one point), y is
 canonical.  ``mark(key)``, when given, is called around each part with
-``"<part>.start"`` / ``"<part>.end"`` for ``part`` in quotient, digits,
-accumulate and tree.
+``"<part>.start"`` / ``"<part>.end"`` for ``part`` in quotient, digits
+and accumulate (M2).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import curve as C
 from . import limbs as L
 from . import msm as M
 from . import protocol_kernels as PK
@@ -52,11 +52,8 @@ def msm(ctx: M.MsmContext, scalars: torch.Tensor, mark=_no_mark) -> torch.Tensor
     digits = M.glv_digits_from_limbs(scalars)
     mark("digits.end")
     mark("accumulate.start")
-    partials = M.msm_accumulate(ctx.table, ctx.inf_mask, digits, ctx.fold)
+    point = ctx.point(digits)
     mark("accumulate.end")
-    mark("tree.start")
-    point = C.sum_points(partials)
-    mark("tree.end")
     return point
 
 

@@ -1,6 +1,7 @@
 """The port's GLV fixed-base MSM (kzg_rust_tpu_torch.ops.msm and the mixed
 add of ops.curve; the plain versions of M1, M2 and the mixed add on the
-CPU) against the JAX package's ops.msm and ops.curve, exactly.
+CPU) against the JAX package's ops.msm and ops.curve and the golden
+lincomb, exactly.
 
 Fp shares the radix 2^384 across the two packages, so tables and points
 compare as raw words.  The JAX shapes are those tests/test_ops_msm.py
@@ -156,10 +157,10 @@ def _scalar_cases():
 @pytest.mark.parametrize("case", ["random", "zero", "one_hot", "all_r_minus_1"])
 def test_msm_fixed_base_on_jax_table(case, contexts, points):
     """The JAX table carried over (msm_context_from_jax) through the port's
-    msm_fixed_base (host recoding, M2, K3 tree) equals the naive lincomb."""
+    msm_fixed_base (host recoding, M2) equals the naive lincomb."""
     jctx, _ = contexts
     ctx = JS.msm_context_from_jax(np.asarray(jctx.table), np.asarray(jctx.inf_mask))
-    assert ctx.fold == M.CPU_FOLD
+    assert (ctx.accumulators, ctx.block) == (M.CPU_ACCUMULATORS, M.CPU_BLOCK)
     scalars = _scalar_cases()[case]
     got = M.msm_fixed_base(ctx, scalars)
     assert got == gc.g1_lincomb_naive(points, scalars)
@@ -169,33 +170,111 @@ def test_msm_fixed_base_on_jax_table(case, contexts, points):
         assert got == points[3]
 
 
-@pytest.mark.parametrize("fold", [7, 64, 100, 832])
-def test_device_digits_msm(fold, contexts, points):
-    """M1's digits through M2 at several partial-sum counts (ragged last
-    rows, the default, one selection a column): the K3 tree of the partials
-    is the lincomb."""
+@pytest.mark.parametrize("accumulators", [1, 7, 64, 100, 832])
+def test_device_digits_msm(accumulators, contexts, points):
+    """M1's digits through M2's plain version at several accumulator counts
+    in blocks of CPU_BLOCK = 16: one accumulator, one ragged block (7),
+    the default (four full blocks), a ragged last block (100), one
+    selection an accumulator (52 blocks).  The point is the lincomb.  The
+    single accumulator adds its selections one after another (~11 ms each
+    here), so its scalars are below 2^32: ~100 selections instead of 832."""
     _, ctx = contexts
-    scalars = [rng.randrange(R) for _ in range(15)] + [R - 1]
+    if accumulators == 1:
+        scalars = [rng.randrange(2**32) for _ in range(16)]
+    else:
+        scalars = [rng.randrange(R) for _ in range(15)] + [R - 1]
     digits = M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"))
-    partials = M.msm_accumulate(ctx.table, ctx.inf_mask, digits, fold)
-    assert partials.shape == (fold, 3, 12)
-    got = C.proj_to_points(C.sum_points(partials)[None])[0]
-    assert got == gc.g1_lincomb_naive(points, scalars)
+    point = M.msm_point(ctx.table, ctx.inf_mask, digits, accumulators, M.CPU_BLOCK)
+    assert point.shape == (3, 12)
+    assert C.proj_to_points(point[None])[0] == gc.g1_lincomb_naive(points, scalars)
+
+
+def test_msm_point_matches_jax(contexts, points):
+    """Given the same table and M1's digits, the port's M2 point equals the
+    JAX package's _msm_core_glv (fold 64, as tests/test_ops_msm.py compiles
+    it) as an affine point; the projective words differ with the order of
+    the sums."""
+    jctx, ctx = contexts
+    scalars = [rng.randrange(R) for _ in range(16)]
+    digits = M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"))
+    d1, d2 = (jnp.asarray(digits[h].numpy(), dtype=jnp.int32) for h in (0, 1))
+    want = np.asarray(JM._msm_glv_kernel(jctx.table, jctx.inf_mask, d1, d2, jctx.fold))
+    got = M.msm_point(ctx.table, ctx.inf_mask, digits, ctx.accumulators, ctx.block)
+    assert C.proj_to_points(got[None]) == C.proj_to_points(JS.points_from_jax(want[None]))
+    assert C.proj_to_points(got[None])[0] == gc.g1_lincomb_naive(points, scalars)
+
+
+@pytest.fixture(scope="module")
+def edge_context():
+    """A 16-point table whose second half repeats and negates the first:
+    points 8-11 are points 0-3, 12-14 are -(4-6), 7 and 15 infinity; the
+    scalars repeat too, so selections s and s + 8 take the same entry or
+    its negation."""
+    base = [gc.g1_mul(gc.G1_GENERATOR, rng.randrange(1, R)) for _ in range(7)] + [None]
+    pts = base + base[:4] + [(p[0], (-p[1]) % P) for p in base[4:7]] + [None]
+    ks = [rng.randrange(R) for _ in range(8)]
+    return M.MsmContext.build_from_points(pts, "cpu"), pts, ks + ks
+
+
+@pytest.mark.parametrize("accumulators", [8, 16])
+def test_msm_equal_and_opposite_points(accumulators, edge_context):
+    """Accumulator a takes selections a and a + 8 in turn at 8 accumulators,
+    so its mixed adds meet P == Q (points 0-3), P == -Q (4-6, leaving
+    infinity, which the next add starts from) and infinity bases (7, 15);
+    at 16 (one block) accumulator i is k_i P_i and the tree's first level
+    adds accumulators i and i + 8, so its complete adds meet the same
+    cases.  The point is the lincomb either way."""
+    ctx, pts, ks = edge_context
+    digits = M.glv_digits_from_limbs(L.to_device(L.FR, ks, "cpu"))
+    got = M.msm_point(ctx.table, ctx.inf_mask, digits, accumulators, M.CPU_BLOCK)
+    assert C.proj_to_points(got[None])[0] == gc.g1_lincomb_naive(pts, ks)
+    if accumulators == 8:
+        # Window 0 of half 0 alone: accumulators 0-3 double their entry, 4-6
+        # cancel to infinity, 7 meets only infinity bases and is never
+        # started.
+        first = torch.zeros_like(digits)
+        first[0, 0] = digits[0, 0]
+        acc = M.msm_accumulate_plain(ctx.table, ctx.inf_mask, first, 8)
+        assert C.point_is_inf(acc).tolist() == [False] * 4 + [True] * 4
+        doubled = [gc.g1_mul(p, 2 * int(first[0, 0, i]) % R) for i, p in enumerate(pts[:4])]
+        assert C.proj_to_points(acc[:4]) == doubled
+        # Then window 1 of points 0-7 alone: accumulators 4-6, at infinity
+        # after P + (-P), add their next entry with the complete add.
+        first[0, 1, :8] = digits[0, 1, :8]
+        acc = M.msm_accumulate_plain(ctx.table, ctx.inf_mask, first, 8)
+        assert C.proj_to_points(acc[4:7]) == [gc.g1_mul(pts[i], int(first[0, 1, i]) * 32 % R) for i in range(4, 7)]
+
+
+def test_block_sums_follow_sum_points(contexts):
+    """M2's plain block sums are sum_points over each block's rows, the
+    ragged last block included, and the point is sum_points over them."""
+    _, ctx = contexts
+    digits = M.glv_digits_from_limbs(L.to_device(L.FR, [rng.randrange(R) for _ in range(16)], "cpu"))
+    acc = M.msm_accumulate_plain(ctx.table, ctx.inf_mask, digits, 40)
+    sums = M.block_sums_plain(acc, 16)
+    assert sums.shape == (3, 3, 12)
+    for b, rows in enumerate((acc[:16], acc[16:32], acc[32:])):
+        assert torch.equal(sums[b], C.sum_points(rows))
+    assert torch.equal(M.msm_point(ctx.table, ctx.inf_mask, digits, 40, 16), C.sum_points(sums))
 
 
 def test_msm_operand_checks(contexts):
     _, ctx = contexts
     digits = torch.zeros((2, 26, 16), dtype=torch.int8)
     with pytest.raises(ValueError, match="digits"):
-        M.msm_accumulate(ctx.table, ctx.inf_mask, digits.to(torch.int32), 8)
-    with pytest.raises(ValueError, match="fold"):
-        M.msm_accumulate(ctx.table, ctx.inf_mask, digits, 0)
+        M.msm_point(ctx.table, ctx.inf_mask, digits.to(torch.int32), 8, 16)
+    with pytest.raises(ValueError, match="accumulators"):
+        M.msm_point(ctx.table, ctx.inf_mask, digits, 0, 16)
+    with pytest.raises(ValueError, match="blocks"):
+        M.msm_point(ctx.table, ctx.inf_mask, digits, 832, 0)
     with pytest.raises(ValueError, match="mask"):
-        M.msm_accumulate(ctx.table, ctx.inf_mask[:8], digits, 8)
+        M.msm_point(ctx.table, ctx.inf_mask[:8], digits, 8, 16)
 
 
 def test_kernel_constants_match():
-    """The immediates of csrc/msm_kernels.cu are the Python constants."""
+    """The immediates of csrc/msm_kernels.cu are the Python constants, and
+    the block sizes its entry point dispatches and its most blocks are
+    ops/msm.py's."""
     text = open(f"{_build.CSRC}/msm_kernels.cu").read()
 
     def words(name):
@@ -208,4 +287,10 @@ def test_kernel_constants_match():
     assert words("half_r") == glv.HALF_R_CEIL
     assert words("beta_mont") == C.BETA_MONT
     assert words("one_mont") == L.FP.mont_r
-    assert _build.ENTRY_POINTS["kzg_msm_glv_accumulate"][0] == "msm_kernels.cu"
+    cases = re.findall(r"case (\d+): return launch_msm<(\d+)>", text)
+    assert all(case == block for case, block in cases)
+    assert tuple(int(block) for _, block in cases) == M.KERNEL_BLOCKS
+    assert M.BLOCK_THREADS in M.KERNEL_BLOCKS
+    assert M.ACCUMULATORS_PER_SM % M.BLOCK_THREADS == 0
+    assert int(re.search(r"constexpr int kMaxBlocks = (\d+);", text).group(1)) == M.MAX_BLOCKS
+    assert _build.ENTRY_POINTS["kzg_msm_glv"][0] == "msm_kernels.cu"
