@@ -17,12 +17,17 @@ Phases, any failure of which exits non-zero without the final line:
    both with CUDA events (a kernel bound by bytes on operands the L2 cache
    does not hold); the K4 chain also against as many one-step K4
    launches, and the constant-exponent chains of K1 and K2 against the
-   same chains as launch sequences of K1 or K2, which are timed too; the
+   same chains as launch sequences of K1 or K2, which are timed too;
+   stage 1's kernels A (decompression) and B (the subgroup check), the K5
+   rows, at 2 x 4096 and 2 x 64 points on valid, off-subgroup and
+   adversarial rows, and stage 1 whole (A, the K4 chain, B) against its
+   plain version with its flags, each replayed from a CUDA graph; the
    prover's M1 (GLV digits) and M2 (the MSM after the digits, one launch)
    at mainnet width, edge scalars and an infinity column included, M2 also
    on a table of repeated and negated points (P == Q, P == -Q, infinity)
    and at every (accumulators, block) of its sweep; the verify
-   path's small launchers at the widest shapes it gives them;
+   path's small launchers at the widest shapes it gives them (the Fp
+   negation at stage 2's [66, 4096, 6] lanes);
 2b. hold the engine against the golden model on this machine's CPU, exactly:
    SHA-256 against hashlib, the G1 and G2 codecs (invalid encodings
    included), G1 and G2 multiplies, the G1 lincomb, the pairing (true,
@@ -52,10 +57,10 @@ Phases, any failure of which exits non-zero without the final line:
    ``KZG_TORCH_EVAL=host``) the 94 single-blob vectors; host-clock times
    (median of 3) printed beside the card's on one line;
 4. check that every kernel of the path launched in the n = 64 batch, one
-   commit or one proof, that at both n the window-base chain and the square
-   root were one launch each and the Fermat inversion and x^4096 one each
-   of the Fr chain, and print the report lines and the ``kernels`` JSON
-   line.
+   commit or one proof, that at both n stage 1 was exactly kernel A, the
+   window-base chain and kernel B (one launch each, nothing else) and the
+   Fermat inversion and x^4096 one each of the Fr chain, and print the
+   report lines and the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -78,29 +83,41 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0x5EED
 BAD_FROM_END = 3  # the corrupted lane sits near the end of the batch
 BATCH_SIZES = (64, 4096)  # a block's batch, and bulk sync; the first is cross-checked on golden
-# Built and held against their plain versions, but no path launches them:
-# the barycentric domain sum runs in kzg_fr_sum_rows, the window-base chains
-# run K4 as kzg_proj_double_chain, one launch for all their doublings
+# Built and held against their plain versions, but no counted run (an
+# n = 64 batch, a commit, a proof) launches them: the barycentric domain sum
+# runs in kzg_fr_sum_rows, the window-base chains run K4 as
+# kzg_proj_double_chain, one launch for all their doublings
 # (kzg_proj_double is K4 alone), and the mixed add runs inside M2
-# (kzg_proj_add_mixed is it alone), for checking and timing.
-OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed"}
-# Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64:
-# K1 at stage 1's width (2 * 4096 points); K2 and the Fr launchers at a
-# product-tree level of the barycentric evaluation (4096 blobs x 64), and K2
-# at its widest, the barycentric terms (4096 x 4096); the square-root chain
-# at stage 1's widths (2 * 4096 and 2 * 64 points), the Fermat and x^4096
-# chains over the padded blobs (4096 and 64); the domain sum at n = 64 (4096
-# rows of 64 blobs); K3 at the subgroup check's first tree level (8 of its
-# 17 window rows x 8192 points) and at stage 2's widest, the right-hand
-# tree's first level (66 windows x 4096 blobs x 4 lanes, halved); K4 and its
-# chain at the window-base chain's widths (n = 4096 and n = 64).  The
-# prover's MSM at mainnet width: M1 over one blob's 4096 scalars, M2 over
-# the [26, 16, 4096] table, the mixed add alone at M2's accumulator count.
-# The verify path's small launchers at the widest shapes it gives them at
-# n = 4096: the barycentric differences (kzg_fr_sub, 4096 x 4096 from two
-# broadcast [4096] operands), the blobs' canonicality (kzg_fr_cmp over
-# 4096 x 4096 elements) and the domain sum (kzg_fr_sum_rows, [4096, 4096]
-# rows in chunks of 64 to [64, 4096], then to [4096]: two launches).
+# (kzg_proj_add_mixed is it alone).  Stage 1's decompression and subgroup
+# check are kernels A and B, which took the Fp compare, the Fp add and the
+# square root's Fp chain off the verify path: kzg_fp_cmp and
+# kzg_fp_pow_const run only in the MSM table's one-off build (its infinity
+# mask and batched inversion), kzg_fp_add in no path.
+OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp", "kzg_fp_add", "kzg_fp_pow_const"}
+# Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64
+# (or gave it before stage 1 ran in kernels A and B, kept so that each
+# kernel's time stays comparable across PRs): K1 at stage 1's former width
+# (2 * 4096 points) and at stage 2's beta products (66 windows x 4096 blobs
+# x 3 phi lanes); K2 and the Fr launchers at a product-tree level of the
+# barycentric evaluation (4096 blobs x 64), and K2 at its widest, the
+# barycentric terms (4096 x 4096); the square-root chain at stage 1's widths
+# (2 * 4096 and 2 * 64 points; its body runs inside kernel A), the Fermat
+# and x^4096 chains over the padded blobs (4096 and 64); the domain sum at
+# n = 64 (4096 rows of 64 blobs); K3 at the subgroup check's former first
+# tree level (8 of its 17 window rows x 8192 points) and at stage 2's
+# widest, the right-hand tree's first level (66 windows x 4096 blobs x 4
+# lanes, halved); K4 and its chain at the window-base chain's widths
+# (n = 4096 and n = 64); stage 1's kernels A and B and stage 1 whole at its
+# widths (2 x 4096 and 2 x 64 points).  The prover's MSM at mainnet width:
+# M1 over one blob's 4096 scalars, M2 over the [26, 16, 4096] table, the
+# mixed add alone at M2's accumulator count.  The verify path's small
+# launchers at the widest shapes it gives them at n = 4096: the barycentric
+# differences (kzg_fr_sub, 4096 x 4096 from two broadcast [4096] operands),
+# the blobs' canonicality (kzg_fr_cmp over 4096 x 4096 elements), the
+# domain sum (kzg_fr_sum_rows, [4096, 4096] rows in chunks of 64 to
+# [64, 4096], then to [4096]: two launches), and the Fp negation of stage
+# 2's selected Y words (kzg_fp_sub, zero minus 66 windows x 4096 blobs x 6
+# lanes), stage 2 being the only stage that launches it.
 SHAPES = {
     "fp": 8192,
     "fr": 262144,
@@ -112,10 +129,15 @@ SHAPES = {
     "double": (8192, 128),
     "msm": 4096,
     "fr_path": 4096,
+    "stage1": (8192, 128),
+    "beta": (66, 4096, 3),
+    "neg": (66, 4096, 6),
 }
 # Launches in one valid batch at n = 64 and 4096, one commit and one proof
 # with z out of the domain.  The MSM in each is M1 and M2, one launch each.
-PATH_LAUNCHES = {"n64": 119, "n4096": 131, "commit": 3, "proof": 54}
+PATH_LAUNCHES = {"n64": 92, "n4096": 104, "commit": 3, "proof": 54}
+# Stage 1 on the card: kernel A, the window-base chain, kernel B.
+STAGE1_LAUNCHES = {"kzg_g1_decompress": 1, "kzg_proj_double_chain": 1, "kzg_g1_subgroup_check": 1}
 # M2's sweep on the card: (accumulators an SM, threads a block), each
 # timed and held against its plain version; ops/msm.py takes the fastest
 # as its default.
@@ -137,6 +159,9 @@ IMAD_PER_CLOCK_PER_SM = 64
 # kernels take them: RCB's products by b3 = 12 are adds there (the same
 # canonical value), so 14 - 2, 9 - 1 and 13 - 2.
 ADD_PRODUCTS, DOUBLE_PRODUCTS, MIXED_PRODUCTS = 12, 8, 11
+# Kernel B's Fp products a point: 16 complete adds over the 17 window rows
+# of z^2, beta X1 and the four cross products.
+SUBGROUP_PRODUCTS = 16 * ADD_PRODUCTS + 5
 
 
 # Probe kernels that differ only in what they do between loading two
@@ -289,6 +314,64 @@ def random_points(rng, n: int, device):
     return L.to_device(L.FP, vals, device).reshape(n, 3, L.FP.nwords), base
 
 
+def compressed_x(x: int, bits: int = 0x80) -> bytes:
+    """The 48 big-endian bytes of x with ``bits`` or-ed into the first."""
+    b = bytearray(x.to_bytes(48, "big"))
+    b[0] |= bits
+    return bytes(b)
+
+
+def stage1_rows(prng) -> tuple[list[bytes], list[bytes], dict]:
+    """Compressed G1 rows for stage 1's kernels: the adversarial rows (the
+    decoders' G1_ENCODINGS and those of tests/test_torch_verify.py: a point
+    off the subgroup, x = p, infinity with a payload, the sign bit or
+    without the compression bit, x = p - 1, an x whose x^3 + 4 is not a
+    square, x = 0, a valid point in both signs); the distinct rows: 128
+    points of the subgroup, then 128 on the curve outside it, each in both
+    signs; and each row's golden reading, (decodes, point, in subgroup)."""
+    from kzg_rust_tpu_torch.errors import BadArgs
+    from kzg_rust_tpu_torch.golden import curve as gc
+    from kzg_rust_tpu_torch.golden.field import P, R, fp_sqrt
+
+    def both_signs(pt):
+        return [gc.g1_compress(pt), gc.g1_compress(gc.g1_neg(pt))]
+
+    def off_subgroup():
+        while True:
+            x = prng.randrange(P)
+            y = fp_sqrt((x * x * x + 4) % P)
+            if y is not None and not gc.g1_in_subgroup((x, y)):
+                return (x, y)
+
+    nonsquare = next(x for x in range(1, 1000) if fp_sqrt((x * x * x + 4) % P) is None)
+    valid = gc.g1_mul(gc.G1_GENERATOR, prng.randrange(1, R))
+    adversarial = G1_ENCODINGS + [
+        gc.g1_compress(off_subgroup()),
+        compressed_x(P),
+        b"\xc0" + b"\x00" * 46 + b"\x01",
+        b"\xe0" + b"\x00" * 47,
+        b"\x40" + b"\x00" * 47,
+        compressed_x(P - 1),
+        compressed_x(nonsquare),
+        compressed_x(0, 0xA0),
+        b"\xc0" + b"\x00" * 47,
+    ] + both_signs(valid)
+    distinct = []
+    for _ in range(128):
+        distinct += both_signs(gc.g1_mul(gc.G1_GENERATOR, prng.randrange(1, R)))
+    for _ in range(128):
+        distinct += both_signs(off_subgroup())
+    golden = {}
+    for row in adversarial + distinct:
+        try:
+            pt = gc.g1_uncompress(row)
+        except BadArgs:
+            golden[row] = (False, None, None)
+            continue
+        golden[row] = (True, pt, gc.g1_in_subgroup(pt))
+    return adversarial, distinct, golden
+
+
 def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], list[dict]]:
     import numpy as np
     import torch
@@ -307,10 +390,13 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, int_ops / imad_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps, keep=True, plain_reps=2):
+    def record(name, kernel, plain, args, source, replaces, nbytes, int_ops, reps, keep=True, plain_reps=2, timed=None):
         """Hold ``kernel`` against ``plain`` on ``args``, time both and return
         the row, kept in ``rows`` unless ``keep`` is false (``every`` keeps
-        them all)."""
+        them all).  ``timed``, when given, is the call timed in place of
+        ``kernel`` (the wrapper alone, where ``kernel`` also packs its
+        outputs into one tensor for the comparison)."""
+        timed = timed or kernel
         got = kernel(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -319,15 +405,15 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         err = int((g64 - w64).abs().max().item()) if got.numel() else 0
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"{name}: kernel disagrees with its plain version (max |diff| {err})")
-        call_ms = cuda_ms(lambda: kernel(*args), reps)
-        warm_ms = graph_ms(lambda: kernel(*args), reps)
+        call_ms = cuda_ms(lambda: timed(*args), reps)
+        warm_ms = graph_ms(lambda: timed(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
         bms, by = bound(nbytes, int_ops)
         # A bytes-bound row is held to the HBM rate, so it is timed on
         # operands the L2 does not hold; replays of one call on the same
         # operands would find them there when they fit twice over.
         cold = by == "bytes" and nbytes < 2 * l2_bytes
-        ms = cold_graph_ms(kernel, args, nbytes, l2_bytes, reps) if cold else warm_ms
+        ms = cold_graph_ms(timed, args, nbytes, l2_bytes, reps) if cold else warm_ms
         row = {
             "name": name,
             "route": "cuda",
@@ -612,6 +698,123 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         )
         dbl_rows.append(chain)
 
+    # Stage 1's kernels, K5, at its widths (2 x 4096 and 2 x 64 points),
+    # the adversarial rows up front, then the distinct rows in turn: A
+    # (decompression) and B (the subgroup check over the K4 chain of A's
+    # points), each held word for word against its plain version on every
+    # row (B's sum keeps the plain version's tree order, so its bits agree
+    # on rows that do not decode too) and timed replayed from a CUDA graph;
+    # the rows that decode also against the golden model.  Then stage 1
+    # whole (A, the chain, B) against its plain version, and its flags on
+    # subgroup, off-subgroup and adversarial rows.  A's bound: the square
+    # root's squarings and products, and to_mont, x^2, x^3, y^2 and
+    # from_mont; B's: SUBGROUP_PRODUCTS.
+    s1src = "kzg_rust_tpu_torch/csrc/stage1_kernels.cu"
+    vk = "kzg_rust_tpu/ops/verify_kernels.py"
+    adversarial, distinct, golden = stage1_rows(random.Random(SEED))
+    sqrt_digits = L.pow_digits((P + 1) // 4)
+    sqrt_squarings = 4 * (len(sqrt_digits) - 1)
+    sqrt_products = max(sqrt_digits) - 1 + sum(1 for d in sqrt_digits[1:] if d)
+    decompress_ops = (sqrt_squarings + 2) * mont_squarings(12) + (sqrt_products + 3) * mont_products(12)
+
+    def compressed(rows_):
+        return torch.from_numpy(np.frombuffer(b"".join(rows_), np.uint8).reshape(len(rows_), 48).copy()).to(device)
+
+    def packed(points, ok):
+        return torch.cat([points.reshape(points.shape[0], -1), ok.to(torch.int32)[:, None]], 1)
+
+    k5 = {"a": [], "b": []}
+    for ns in SHAPES["stage1"]:
+        rows_s = adversarial + [distinct[k % len(distinct)] for k in range(ns - len(adversarial))]
+        comp = compressed(rows_s)
+        a = record(
+            "K5 kzg_g1_decompress",
+            lambda c: packed(*V.g1_uncompress_points(c)),
+            lambda c: packed(*V.g1_uncompress_points_plain(c)),
+            (comp,),
+            s1src,
+            f"{vk}:73 (g1_uncompress_points in the XLA program batch_points :212, over {pk}:248)",
+            ns * (48 + 144 + 1),
+            ns * decompress_ops,
+            20,
+            keep=False,
+            plain_reps=1,
+            timed=V.g1_uncompress_points,
+        )
+        points, ok = V.g1_uncompress_points(comp)
+        bases, bases2 = V.bases_chain(points)
+        b = record(
+            "K5 kzg_g1_subgroup_check",
+            lambda p, x, y: V.subgroup_check_from_bases(p, x, y).to(torch.int32),
+            lambda p, x, y: V.subgroup_check_from_bases_plain(p, x, y).to(torch.int32),
+            (points, bases, bases2),
+            s1src,
+            f"{vk}:166 (subgroup_check_from_bases in the XLA program batch_points :212, over {pk}:248 and :348)",
+            ns * (18 * 144 + 1),
+            ns * SUBGROUP_PRODUCTS * mont_products(12),
+            20,
+            keep=False,
+            plain_reps=1,
+            timed=V.subgroup_check_from_bases,
+        )
+        sub = V.subgroup_check_from_bases(points, bases, bases2).cpu().tolist()
+        seen = len(adversarial) + min(len(distinct), ns - len(adversarial))
+        affine = C.proj_to_points(points[:seen].cpu())
+        for i, row in enumerate(rows_s[:seen]):
+            decodes, pt, in_sub = golden[row]
+            if bool(ok[i]) != decodes or (decodes and (affine[i] != pt or bool(sub[i]) != in_sub)):
+                raise AssertionError(f"K5 at [{ns}]: row {i} ({row[:2].hex()}...) disagrees with the golden model")
+        got = V.batch_points(comp)
+        want = V.batch_points_plain(comp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"stage 1 at [{ns}]: kernels A, the chain and B disagree with the plain stage")
+        stage_ms = graph_ms(lambda c=comp: V.batch_points(c), 10)
+        a["stage1_ms"] = b["stage1_ms"] = stage_ms
+        log(
+            f"kernel K5: A and B equal to their plain versions and the golden model at [{ns}] "
+            f"({seen} distinct rows); stage 1 whole equal to its plain version, {stage_ms:.4f} ms replayed "
+            f"(A {a['ms']:.4f} + the K4 chain + B {b['ms']:.4f})"
+        )
+        k5["a"].append(a)
+        k5["b"].append(b)
+    # The flags: all decode and all in the subgroup; all decode, none in it;
+    # the adversarial rows, some of which fail each.
+    ns = SHAPES["stage1"][1]
+    flag_sets = {
+        "subgroup": (distinct[:ns], [1, 1]),
+        "off_subgroup": (distinct[256 : 256 + ns], [1, 0]),
+        "adversarial": (adversarial + distinct[: ns - len(adversarial)], [0, 0]),
+    }
+    for label, (rows_s, want) in flag_sets.items():
+        comp = compressed(rows_s)
+        flags = V.batch_points(comp)[2].tolist()
+        plain = V.batch_points_plain(comp)[2].tolist()
+        if not flags == plain == want:
+            raise AssertionError(f"stage 1 flags on the {label} rows: kernels {flags}, plain {plain}, expected {want}")
+    log(f"kernel K5: stage 1's flags at [{ns}]: {json.dumps({k: v[1] for k, v in flag_sets.items()})}, as its plain version gives them")
+
+    # K1 as the path launches it since stage 1 runs in kernels A and B: the
+    # phi halves' X times beta in stage 2, [66, 4096, 3] selected points.
+    nbeta = SHAPES["beta"][0] * SHAPES["beta"][1] * SHAPES["beta"][2]
+    xs_beta = torch.randint(-(1 << 31), 1 << 31, (nbeta, 12), dtype=torch.int32, device=device, generator=torch.Generator(device=device).manual_seed(SEED))
+    xs_beta[:, 11] &= 0x0FFFFFFF  # below 2^380 < p
+    beta = L.FP.const(C.BETA_MONT, device)
+    k1_path = record(
+        "K1 kzg_fp_mont_mul",
+        lambda x, y: L.mont_mul(L.FP, x, y),
+        lambda x, y: L.mont_mul_plain(L.FP, x, y),
+        (xs_beta, beta),
+        fsrc,
+        f"{pk}:248",
+        2 * xs_beta.shape[0] * 48 + 48,
+        xs_beta.shape[0] * mont_products(12),
+        20,
+        keep=False,
+        plain_reps=1,
+    )
+    del xs_beta
+
     # The prover's MSM kernels at mainnet width.  M1 over one blob's 4096
     # scalars, the edge scalars of tests/test_ops_msm.py leading; M2 over a
     # [26, 16, 4096] table of random canonical words (its arithmetic is the
@@ -803,23 +1006,49 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         plain_reps=1,
     )
     del wide, rows3
+    # kzg_fp_sub at stage 2's widest launch: the negated Y words of the
+    # selected digit multiples at n = 4096 (zero minus [66, 4096, 6] words,
+    # the zero broadcast).
+    ys = torch.randint(-(1 << 31), 1 << 31, SHAPES["neg"] + (12,), dtype=torch.int32, device=device, generator=gen)
+    ys[..., 11] &= 0x0FFFFFFF  # below 2^380 < p
+    nneg = ys.numel() // 12
+    record(
+        "kzg_fp_sub",
+        lambda y: L.neg_mod(L.FP, y),
+        lambda y: L.sub_mod_plain(L.FP, L.FP.const("zero", device), y),
+        (ys,),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
+        2 * nneg * 48 + 48,
+        nneg * 3 * 12,
+        20,
+        plain_reps=1,
+    )
+    del ys
 
-    # The kernels line: K1 and K2 as the chains the path launches, with
-    # their single products beside them; K3 at the widest launch and K4 as
-    # the chain, each with its narrower shape beside it; M1 and M2.
-    k1 = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][0])]
-    k1["at_narrow"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][1])]
+    # The kernels line: K1 as the product the path launches (stage 2's
+    # beta products), with its product at [8192] and its chain at the square
+    # root's widths beside it (the chain's body runs inside kernel A); K2
+    # as the chain the path launches, with its products beside it; K3 at
+    # the widest launch and K4 as the chain, each with its narrower shape
+    # beside it; the K5 kernels A and B at 2 x 4096 points, 2 x 64 beside;
+    # M1 and M2.
+    k1 = k1_path
+    k1["product_8192"] = products["fp"][0]
+    k1["chain"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][0])]
+    k1["chain_at_narrow"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][1])]
     k2 = chains[("fr", "r-2", SHAPES["fr_pow"][0])]
     k2["at_narrow"] = chains[("fr", "r-2", SHAPES["fr_pow"][1])]
     k2["x4096"] = chains[("fr", "4096", SHAPES["fr_pow"][0])]
-    for row, spec in ((k1, "fp"), (k2, "fr")):
-        row["product"] = products[spec]
-        row["product_ms"] = products[spec][0]["ms"]
-        row["product_bound_ms"] = products[spec][0]["bound_ms"]
-        row["product_plain_ms"] = products[spec][0]["plain_ms"]
+    k2["product"] = products["fr"]
+    k2["product_ms"] = products["fr"][0]["ms"]
+    k2["product_bound_ms"] = products["fr"][0]["bound_ms"]
+    k2["product_plain_ms"] = products["fr"][0]["plain_ms"]
     add_rows[1]["at_narrow"] = add_rows[0]
     dbl_rows[0]["at_narrow"] = dbl_rows[1]
-    rows += [k1, k2, add_rows[1], dbl_rows[0], m1, m2]
+    for key in ("a", "b"):
+        k5[key][0]["at_narrow"] = k5[key][1]
+    rows += [k1, k2, add_rows[1], dbl_rows[0], k5["a"][0], k5["b"][0], m1, m2]
     return rows, every
 
 
@@ -981,6 +1210,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
         MSG_NOT_IN_SUBGROUP,
     )
     from kzg_rust_tpu_torch.ops import _build
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
 
     golden = GoldenBackend()
     vec = os.path.join(ROOT, "tests", "vectors")
@@ -1021,7 +1251,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
     nrng = np.random.default_rng(SEED)
     prng = random.Random(SEED)
     sub_point = Bytes48(out_of_subgroup_compressed(prng))
-    report = {"lanes": {}, "launches": {}, "stage_ms": {}, "host_ms": {}, "e2e_ms": {}, "blobs_per_s": {}}
+    report = {"lanes": {}, "launches": {}, "stage1_launches": {}, "stage_ms": {}, "host_ms": {}, "e2e_ms": {}, "blobs_per_s": {}}
 
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
     for n in BATCH_SIZES:
@@ -1066,10 +1296,25 @@ def main_path(backend, settings, host: bool = False) -> dict:
         if cross:
             report["golden_pairing"] = golden_pairing_lane(backend, settings, lanes)
 
-        # Launch counts of one valid batch: counts set to 0 just before, read just after.
-        _build.reset_launches()
-        valid = Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
-        torch.cuda.synchronize()
+        # Launch counts of one valid batch: counts set to 0 just before, read
+        # just after; those of its stage 1 as the difference across the
+        # backend's call of verify_kernels.batch_points.
+        stage1 = report["stage1_launches"][n] = {}
+        real_stage1 = V.batch_points
+
+        def counted_stage1(comp):
+            before = dict(_build.LAUNCHES)
+            out = real_stage1(comp)
+            stage1.update({e: c - before[e] for e, c in _build.LAUNCHES.items() if c != before[e]})
+            return out
+
+        V.batch_points = counted_stage1
+        try:
+            _build.reset_launches()
+            valid = Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
+            torch.cuda.synchronize()
+        finally:
+            V.batch_points = real_stage1
         report["launches"][n] = dict(_build.LAUNCHES)
         if valid is not True:
             raise AssertionError(f"{where}: n={n}: the valid batch did not verify")
@@ -1557,14 +1802,18 @@ def main() -> int:
     missing = [e for e in _build.ENTRY_POINTS if e not in OFF_PATH and not any(counts[e] for counts in runs.values())]
     if missing:
         raise AssertionError(f"kernels of the path never launched by the n={small} batch, a commit or a proof: {missing}")
-    # The window-base chain is one launch, with no one-step K4 beside it; the
-    # square root is one Fp chain, the Fermat inversion and x^4096 two Fr chains.
-    chain_counts = {"kzg_proj_double_chain": 1, "kzg_proj_double": 0, "kzg_fp_pow_const": 1, "kzg_fr_pow_const": 2}
+    # Stage 1 is kernel A, the window-base chain and kernel B, one launch
+    # each and nothing else (no Fp compare, K1, K3 or Fp chain); the batch
+    # has no one-step K4 and no Fp chain (the square root is inside A), and
+    # the Fermat inversion and x^4096 are two Fr chains.
+    chain_counts = {"kzg_proj_double_chain": 1, "kzg_proj_double": 0, "kzg_fp_pow_const": 0, "kzg_fr_pow_const": 2}
     for n in BATCH_SIZES:
+        if report["stage1_launches"][n] != STAGE1_LAUNCHES:
+            raise AssertionError(f"n={n}: stage 1 launched {report['stage1_launches'][n]}, expected {STAGE1_LAUNCHES}")
         got = {e: report["launches"][n][e] for e in chain_counts}
         if got != chain_counts:
             raise AssertionError(f"n={n}: chain launches {got}, expected {chain_counts}")
-        log(f"launches: n={n}: {sum(report['launches'][n].values())} in one valid batch; chains {json.dumps(got)}")
+        log(f"launches: n={n}: {sum(report['launches'][n].values())} in one valid batch; stage 1 {json.dumps(report['stage1_launches'][n])}; chains {json.dumps(got)}")
     for row in rows:
         log(f"launches: {row['name']}: {row['launches']} on the path ({json.dumps(row['launches_by_run'])}), {row[f'launches_n{large}']} in one n={large} batch")
     log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))

@@ -1,6 +1,7 @@
 // BLS12-381 field arithmetic for Hopper (sm_90a): device functions shared
-// by the field kernels (field_kernels.cu) and the G1 kernels
-// (curve_kernels.cu), and the block size their launchers take.
+// by the field kernels (field_kernels.cu), the G1 kernels (curve_kernels.cu,
+// msm_kernels.cu) and stage 1's kernels (stage1_kernels.cu), and the block
+// size their launchers take.
 //
 // An element of Fp is 12 little-endian 32-bit words, one of Fr 8 words, held
 // in registers by one thread.  Montgomery products use R = 2^384 for Fp (the
@@ -447,6 +448,72 @@ __device__ __forceinline__ void fr_mont_mul(uint32_t* r, const uint32_t* a, cons
 }
 __device__ __forceinline__ void fp_mont_sqr(uint32_t* r, const uint32_t* a) { sos_sqr<Fp>(r, a); }
 __device__ __forceinline__ void fr_mont_sqr(uint32_t* r, const uint32_t* a) { sos_sqr<Fr>(r, a); }
+
+// ---------------------------------------------------------------------------
+// Constant-exponent chains (K1's kzg_fp_pow_const and K2's kzg_fr_pow_const
+// in field_kernels.cu, the square root of kzg_g1_decompress in
+// stage1_kernels.cu).
+// ---------------------------------------------------------------------------
+
+constexpr int kPowMaxDigits = 96;  // 4-bit digits of an exponent below 2^384
+constexpr int kPowMaxEntry = 15;
+
+// The exponent of a chain, by value: its 4-bit digits, most significant
+// first (d[0] != 0), and the largest digit.  A kernel parameter lives in the
+// constant bank, which every thread of a warp reads at one address in one
+// cycle; a CUDA graph captures it with the launch.
+struct PowDigits {
+  uint8_t d[kPowMaxDigits];
+  uint32_t count;
+  uint32_t top;
+};
+
+// Entry k (a^k, 1 <= k <= top) of this thread's table, word j, at
+// col[((k - 1) N + j) T]: neighbouring threads hit neighbouring banks.
+template <int N, int T>
+__device__ __forceinline__ void table_put(uint32_t* col, uint32_t k, const uint32_t* v) {
+  col += (k - 1) * N * T;
+#pragma unroll
+  for (int j = 0; j < N; j++) col[j * T] = v[j];
+}
+
+template <int N, int T>
+__device__ __forceinline__ void table_get(uint32_t* v, const uint32_t* col, uint32_t k) {
+  col += (k - 1) * N * T;
+#pragma unroll
+  for (int j = 0; j < N; j++) v[j] = col[j * T];
+}
+
+// acc = a^e in Montgomery form by one thread: the table a^1..a^top in its
+// column ``col`` of the block's dynamic shared memory, laid out
+// [entry][word][thread] for T threads (top N words a thread; top - 1
+// products), then per further digit four squarings and, for a nonzero
+// digit, one product by a table entry.  acc may alias a.
+template <class F, int T>
+__device__ __forceinline__ void pow_const(uint32_t* acc, const uint32_t* a, uint32_t* col,
+                                          const PowDigits& e) {
+  constexpr int N = F::N;
+  uint32_t x[N];
+#pragma unroll
+  for (int j = 0; j < N; j++) x[j] = acc[j] = a[j];
+  table_put<N, T>(col, 1, x);
+#pragma unroll 1
+  for (uint32_t k = 2; k <= e.top; k++) {
+    cios_mul<F>(acc, acc, x);
+    table_put<N, T>(col, k, acc);
+  }
+  table_get<N, T>(acc, col, e.d[0]);
+#pragma unroll 1
+  for (uint32_t k = 1; k < e.count; k++) {
+#pragma unroll 1
+    for (int s = 0; s < 4; s++) sos_sqr<F>(acc, acc);
+    const uint32_t d = e.d[k];
+    if (d) {
+      table_get<N, T>(x, col, d);
+      cios_mul<F>(acc, acc, x);
+    }
+  }
+}
 
 template <int N>
 __device__ __forceinline__ void load_words(uint32_t* r, const uint32_t* __restrict__ src) {

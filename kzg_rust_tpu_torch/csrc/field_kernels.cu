@@ -9,9 +9,10 @@
 // The chains, kzg_fp_pow_const and kzg_fr_pow_const, are K1's and K2's
 // products in one launch: the JAX package runs each such chain as one jitted
 // fori_loop (kzg_rust_tpu/ops/limbs.py:513 mont_pow_const).  The verify path
-// has three: the decompression square root rhs^((p+1)/4) over the batch's
-// 2 npad points, the Fermat inversion d^(r-2) of the product-tree root, and
-// x^4096 in the barycentric formula, both over npad blobs.
+// launches two, the Fermat inversion d^(r-2) of the product-tree root and
+// x^4096 in the barycentric formula, both over npad blobs; the chain's body
+// (field.cuh pow_const) also takes the decompression square root
+// rhs^((p+1)/4) inside stage 1's kzg_g1_decompress (stage1_kernels.cu).
 //
 // What bounds them at the path's shapes, and what the design does about it.
 // - Bytes, at K2's wide product-tree levels and barycentric terms (up to
@@ -57,8 +58,6 @@ using namespace kzg;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDigits = 96;  // 4-bit digits of an exponent below 2^384
-constexpr int kMaxEntry = 15;
 
 enum Op { kMul = 0, kAdd = 1, kSub = 2 };
 
@@ -125,37 +124,11 @@ __global__ void __launch_bounds__(kThreads) sum_rows_kernel(
   store_words<N>(out + (size_t)t * N, acc);
 }
 
-// The exponent of a chain, by value: its 4-bit digits, most significant
-// first (d[0] != 0), and the largest digit.  A kernel parameter lives in the
-// constant bank, which every thread of a warp reads at one address in one
-// cycle; a CUDA graph captures it with the launch.
-struct PowDigits {
-  uint8_t d[kMaxDigits];
-  uint32_t count;
-  uint32_t top;
-};
-
-// Entry k (a^k, 1 <= k <= top) of this thread's table, word j, at
-// col[((k - 1) N + j) T]: neighbouring threads hit neighbouring banks.
-template <int N, int T>
-__device__ __forceinline__ void table_put(uint32_t* col, uint32_t k, const uint32_t* v) {
-  col += (k - 1) * N * T;
-#pragma unroll
-  for (int j = 0; j < N; j++) col[j * T] = v[j];
-}
-
-template <int N, int T>
-__device__ __forceinline__ void table_get(uint32_t* v, const uint32_t* col, uint32_t k) {
-  col += (k - 1) * N * T;
-#pragma unroll
-  for (int j = 0; j < N; j++) v[j] = col[j * T];
-}
-
-// out[i] = a[i]^e in Montgomery form, one thread per element: the table
-// a^1..a^top in shared memory (top - 1 products), then per further digit
-// four squarings and, for a nonzero digit, one product by a table entry.
-// Every thread reads and writes only its own table column, so the block
-// never synchronises and a thread past n returns at once.
+// out[i] = a[i]^e in Montgomery form, one thread per element (field.cuh
+// pow_const: the table a^1..a^top in this thread's column of shared memory,
+// then four squarings and a product a digit).  Every thread reads and writes
+// only its own table column, so the block never synchronises and a thread
+// past n returns at once.
 template <class F, int T>
 __global__ void __launch_bounds__(T) pow_kernel(const uint4* __restrict__ a,
                                                 uint4* __restrict__ out, uint32_t n,
@@ -164,28 +137,9 @@ __global__ void __launch_bounds__(T) pow_kernel(const uint4* __restrict__ a,
   const uint32_t i = blockIdx.x * T + threadIdx.x;
   if (i >= n) return;
   constexpr int N = F::N, V = N / 4;
-  uint32_t* const col = table + threadIdx.x;
   uint32_t x[N], acc[N];
   load_vec<N>(x, a + (size_t)i * V);
-  table_put<N, T>(col, 1, x);
-#pragma unroll
-  for (int j = 0; j < N; j++) acc[j] = x[j];
-#pragma unroll 1
-  for (uint32_t k = 2; k <= e.top; k++) {
-    cios_mul<F>(acc, acc, x);
-    table_put<N, T>(col, k, acc);
-  }
-  table_get<N, T>(acc, col, e.d[0]);
-#pragma unroll 1
-  for (uint32_t k = 1; k < e.count; k++) {
-#pragma unroll 1
-    for (int s = 0; s < 4; s++) sos_sqr<F>(acc, acc);
-    const uint32_t d = e.d[k];
-    if (d) {
-      table_get<N, T>(x, col, d);
-      cios_mul<F>(acc, acc, x);
-    }
-  }
+  pow_const<F, T>(acc, x, table + threadIdx.x, e);
   store_vec<N>(out + (size_t)i * V, acc);
 }
 
@@ -228,12 +182,12 @@ int launch_pow_t(const void* a, void* out, long long n, const PowDigits& e, cuda
 template <class F>
 int launch_pow(const void* a, void* out, long long n, const void* digits, long long count,
                void* stream) {
-  if (count < 1 || count > kMaxDigits) return (int)cudaErrorInvalidValue;
+  if (count < 1 || count > kPowMaxDigits) return (int)cudaErrorInvalidValue;
   PowDigits e{};
   e.count = (uint32_t)count;
   for (long long k = 0; k < count; k++) {
     e.d[k] = ((const uint8_t*)digits)[k];
-    if (e.d[k] > kMaxEntry) return (int)cudaErrorInvalidValue;
+    if (e.d[k] > kPowMaxEntry) return (int)cudaErrorInvalidValue;
     e.top = e.d[k] > e.top ? e.d[k] : e.top;
   }
   if (e.d[0] == 0) return (int)cudaErrorInvalidValue;

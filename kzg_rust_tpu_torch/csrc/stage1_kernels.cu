@@ -1,0 +1,380 @@
+// Verification's stage 1 for Hopper (sm_90a) as three launches: kernel A,
+// kzg_g1_decompress (G1 decompression with its square root), then the K4
+// chain of curve_kernels.cu (the 131 doublings of the window bases), then
+// kernel B, kzg_g1_subgroup_check (the GLV subgroup check over the chain's
+// rows).  Nothing but allocations lies between them on the host, and the
+// stage's two flags stay on the card until the batch's one fetch.
+//
+// A and B replace the rest of the XLA program of the JAX package's
+// kzg_rust_tpu/ops/verify_kernels.py:212 batch_points: A its :73
+// g1_uncompress_points, B its :166 subgroup_check_from_bases and the flags
+// of :212.  On the TPU that program ran on K1's product (pallas_kernels.py
+// :248, whose core runs inside both here) and K3's complete add (:348,
+// which B takes over four lanes); the port ran it as 29 launches of K1, K3,
+// the Fp chain and the small Fp launchers, with ~25 tensor ops between.
+//
+// A, one thread a point: the flag bits, the 48 big-endian bytes as 12
+// little-endian words, x < p (a non-canonical x is clamped to 0, so the
+// Montgomery steps stay in range), to_mont, x^3 + 4, the square root
+// rhs^((p+1)/4) (field.cuh pow_const, the body of K1's chain, its table in
+// dynamic shared memory), y^2 == rhs, the sign test on from_mont(y) and the
+// conditional negation, and the strict infinity encoding: the rules of the
+// JAX g1_uncompress_points (:73-111).  Each value is the canonical integer
+// of the same field operations, so every row, valid or not, gets the words
+// of the plain version (ops/verify_kernels.py g1_uncompress_points_plain).
+// It writes the projective point, the row's ok, and sets both stage-1
+// flags to 1 for B to clear.  Bound: operations, the chain's 376 squarings
+// and 105 products and five more products and squarings.
+//
+// B, four lanes a point: [z^2]P as the halving tree of ops/curve.py
+// sum_points over the 17 chain rows that the nonzero signed base-4 digits
+// of z^2 name (kZ2Digits: |d| = 2 takes 2 4^j P, a -1 digit negates Y as
+// the row is loaded), each complete add spread over the point's lanes
+// (curve.cuh add_lanes); then phi(P) == -[z^2]P by cross products, with
+// infinity passing: the rules of the JAX subgroup_check_from_bases
+// (:166-196).  The tree's order is the plain version's, so the sum has the
+// same projective words and every row the same bit, decoded or not.  Each
+// block ANDs its rows' bits, and A's decode bits, with __syncthreads_and; a
+// block with a failing row stores 0 into the flag.  Bound: operations, 16
+// adds of 12 Fp products and 5 products a point.
+//
+// What bounds them at the path's widths (2 npad = 128 or 8,192 points) is
+// latency: A is one dependent chain of ~486 products a thread, as K1's
+// chain was; B's sum is 16 dependent adds.  B's lanes cut an add's wait to
+// the two products of each of its two levels that a lane takes (four
+// instead of twelve, the M2 trees' add_lanes) and put four times as many
+// warps on the card.  The launch cost that held stage 1 back (30 launches
+// from Python, each at a few microseconds of card time for a fraction of a
+// microsecond of work) is three launches.  Tensor cores and TMA have
+// nothing to offer: every operand is a different 12-word integer.
+//
+// C interface as in field_kernels.cu: launch on the given stream, return
+// cudaGetLastError().  Points, rows and compressed inputs start on 16 bytes
+// (the entry points return cudaErrorInvalidValue otherwise).
+
+#include <cuda_runtime.h>
+
+#include "curve.cuh"
+
+using namespace kzg;
+
+namespace {
+
+constexpr int kVecs = 9;          // 16-byte vectors of a projective point; 3 a coordinate
+constexpr int kScratchVecs = 36;  // of a lane group's scratch (add_lanes: 12 coordinates)
+constexpr int kLanes = 4;         // B's lanes a point
+constexpr int kWindows = 66;      // signed base-4 windows of z^2
+constexpr int kParts = 17;        // its nonzero digits
+constexpr int kSlots = 10;        // B's points in shared memory a point: 9 tree slots, 1 staged row
+
+// The signed base-4 digits of z^2, least significant first: ops/glv.py
+// recode_base4_signed([Z2]) (the CPU tests parse this array).
+constexpr int kZ2Digits[kWindows] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 1, 2, 2, 1, 0, 0, 0,
+    0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 2, 2, 1, 1, 0, 1, 0, -1, -1, -1, 1, 0};
+
+constexpr int nonzero_digits() {
+  int c = 0;
+  for (int j = 0; j < kWindows; j++) c += kZ2Digits[j] != 0;
+  return c;
+}
+static_assert(nonzero_digits() == kParts, "z^2 has 17 nonzero signed base-4 digits");
+
+// (p + 1) / 4, the square root's exponent, as little-endian words.
+constexpr uint32_t kSqrtExp[Fp::N] = {0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu,
+                                      0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u,
+                                      0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
+
+// Its 4-bit digits, most significant first, as field.cuh pow_const takes them.
+PowDigits sqrt_digits() {
+  PowDigits e{};
+  for (int k = 8 * Fp::N - 1; k >= 0; k--) {
+    const uint8_t d = (kSqrtExp[k / 8] >> (4 * (k % 8))) & 15u;
+    if (e.count == 0 && d == 0) continue;
+    e.d[e.count++] = d;
+    if (d > e.top) e.top = d;
+  }
+  return e;
+}
+
+// A constant Fp element as immediates, NAME() (the CPU tests parse these
+// lines against the Python constants).
+#define KZG_CONSTANT(NAME, ...)                            \
+  __device__ __forceinline__ Elt NAME() {                  \
+    constexpr uint32_t w[Fp::N] = {__VA_ARGS__};           \
+    Elt r;                                                 \
+    for (int j = 0; j < Fp::N; j++) r.w[j] = w[j];         \
+    return r;                                              \
+  }
+
+KZG_CONSTANT(r2_mod_p, 0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u, 0x4c95b6d5u, 0x8de5476cu,
+             0x939d83c0u, 0x67eb88a9u, 0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u)  // R^2 mod p
+KZG_CONSTANT(one_mont, 0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
+             0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u)  // R mod p
+KZG_CONSTANT(b4_mont, 0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au,
+             0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u)  // 4 R mod p
+KZG_CONSTANT(half_p1, 0xffffd556u, 0xdcff7fffu, 0x58a9ffffu, 0x0f55ffffu, 0x7b587b12u, 0xb3986950u,
+             0x79c2895fu, 0xb23ba5c2u, 0x21a5d66bu, 0x258dd3dbu, 0x1cbff34du, 0x0d0088f5u)  // (p+1)/2
+KZG_CONSTANT(beta_mont, 0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u, 0x16a8ca3au,
+             0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u, 0x241b6160u, 0x051ba4abu)  // beta R mod p
+
+__device__ __forceinline__ Elt zero() {
+  Elt r;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) r.w[j] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Elt modulus() {
+  Elt r;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) r.w[j] = fp_mod_word(j);
+  return r;
+}
+
+__device__ __forceinline__ Elt sqr(const Elt& a) {
+  Elt r;
+  fp_mont_sqr(r.w, a.w);
+  return r;
+}
+
+__device__ __forceinline__ bool is_zero(const Elt& a) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) any |= a.w[j];
+  return any == 0;
+}
+
+__device__ __forceinline__ bool equal(const Elt& a, const Elt& b) {
+  uint32_t diff = 0;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) diff |= a.w[j] ^ b.w[j];
+  return diff == 0;
+}
+
+// a >= b as integers: the most significant differing word decides.
+__device__ __forceinline__ bool geq(const Elt& a, const Elt& b) {
+  bool ge = true, eq = true;
+#pragma unroll
+  for (int j = Fp::N - 1; j >= 0; j--) {
+    if (eq && a.w[j] != b.w[j]) {
+      ge = a.w[j] > b.w[j];
+      eq = false;
+    }
+  }
+  return ge;
+}
+
+// Kernel A.  comp [n, 48] uint8 -> out [n, 3, 12] projective Montgomery
+// points, ok [n] (0 or 1); flags [2], when given, set to 1.
+template <int T>
+__global__ void __launch_bounds__(T) decompress_kernel(const uint4* __restrict__ comp,
+                                                       uint4* __restrict__ out,
+                                                       uint8_t* __restrict__ ok_out,
+                                                       int* __restrict__ flags, uint32_t n,
+                                                       const __grid_constant__ PowDigits e) {
+  extern __shared__ uint32_t table[];
+  const uint32_t i = blockIdx.x * T + threadIdx.x;
+  if (flags != nullptr && i == 0) flags[0] = flags[1] = 1;
+  if (i >= n) return;
+
+  // The flag bits of byte 0, and the 48 big-endian bytes, those bits masked
+  // off, as little-endian words (word j is bytes 44 - 4j .. 47 - 4j).
+  uint32_t raw[Fp::N];
+  load_vec<Fp::N>(raw, comp + (size_t)i * 3);
+  const uint32_t bits = raw[0] & 0xffu;
+  const bool comp_bit = bits & 0x80u, inf_bit = bits & 0x40u, sign_bit = bits & 0x20u;
+  Elt x;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) x.w[j] = __byte_perm(raw[Fp::N - 1 - j], 0, 0x0123);
+  x.w[Fp::N - 1] &= 0x1fffffffu;
+  const bool x_zero = is_zero(x);  // with the infinity bit: the strict encoding
+  const bool x_ok = !geq(x, modulus());
+  if (!x_ok) x = zero();
+
+  Elt xm = mul(x, r2_mod_p());
+  Elt rhs = add(mul(xm, sqr(xm)), b4_mont());
+  // xm and rhs wait in shared memory, after the tables, while the chain
+  // runs, so that the chain has the registers it has in K1's chain kernel:
+  // held live in registers beside it, they made it about 40% slower on the
+  // H100.
+  uint4* const park = (uint4*)(table + (size_t)e.top * Fp::N * T) + threadIdx.x * 6;
+  sts(park, xm);
+  sts(park + 3, rhs);
+  Elt y;
+  pow_const<Fp, T>(y.w, rhs.w, table + threadIdx.x, e);
+  xm = lds(park);
+  rhs = lds(park + 3);
+  const bool on_curve = equal(sqr(y), rhs);
+  Elt unit = zero();
+  unit.w[0] = 1;
+  const bool y_large = geq(mul(y, unit), half_p1());  // from_mont(y) >= (p+1)/2
+  if (y_large != sign_bit) y = sub(zero(), y);
+
+  const bool ok = comp_bit && (inf_bit ? !sign_bit && x_zero : x_ok && on_curve);
+  uint4* o = out + (size_t)i * kVecs;
+  stg(o, inf_bit ? zero() : xm);
+  stg(o + 3, inf_bit ? one_mont() : y);
+  stg(o + 6, inf_bit ? zero() : one_mont());
+  ok_out[i] = ok;
+}
+
+// B's parts: the chain row of each nonzero digit of z^2 in order of its
+// window j (bases[j], or bases2[j] for |d| = 2), and a bit a part for a
+// negative digit.  A kernel parameter: a lane reads row[k] at one address
+// of the constant bank.
+struct Parts {
+  const uint4* row[kParts];
+  uint32_t neg;
+};
+
+// Coordinate `coord` of point `at` of part k into dst, Y negated for a
+// negative digit.
+__device__ __forceinline__ void stage_coord(uint4* dst, const Parts& parts, int k, size_t at, int coord) {
+  Elt v = ldg(parts.row[k] + at * kVecs + 3 * coord);
+  if (coord == 1 && (parts.neg >> k & 1u)) v = sub(zero(), v);
+  sts(dst + 3 * coord, v);
+}
+
+// Kernel B.  points [n, 3, 12] and the parts' rows -> sub_ok [n] (0 or 1);
+// with flags, flag 1 cleared where a row fails and, with dec_ok [n] (A's
+// ok), flag 0 where a row does not decode.  Lanes 4g .. 4g + 3 of a block
+// take its point g; each group has ten points of the block's shared memory
+// (slots 0-8 of the tree, slot 9 a staged row) and its add_lanes scratch.
+template <int T>
+__global__ void __launch_bounds__(T) subgroup_kernel(const uint4* __restrict__ points,
+                                                     const __grid_constant__ Parts parts,
+                                                     const uint8_t* __restrict__ dec_ok,
+                                                     uint8_t* __restrict__ sub_ok,
+                                                     int* __restrict__ flags, uint32_t n) {
+  extern __shared__ uint4 smem[];
+  constexpr int kPoints = T / kLanes;
+  const uint32_t g = threadIdx.x / kLanes;
+  const int r = threadIdx.x % kLanes;
+  const uint32_t i = blockIdx.x * kPoints + g;
+  const bool live = i < n;
+  const unsigned mask = 0xfu << (threadIdx.x % 32 / kLanes * kLanes);
+  uint4* const slots = smem + (size_t)g * kSlots * kVecs;
+  uint4* const staged = slots + (kSlots - 1) * kVecs;
+  uint4* const scratch = smem + (size_t)kPoints * kSlots * kVecs + g * kScratchVecs;
+  bool in_group = true;
+  if (live) {
+    // The halving tree over the 17 parts: the first level adds part k + 8
+    // onto part k (k < 8) as the rows are loaded and carries part 16 to
+    // slot 8; the levels over the 9 slots follow.
+#pragma unroll 1
+    for (int k = 0; k < 8; k++) {
+      for (int c = r; c < 6; c += kLanes)
+        stage_coord(c < 3 ? slots + k * kVecs : staged, parts, c < 3 ? k : k + 8, i, c % 3);
+      __syncwarp(mask);
+      add_lanes<kLanes>(slots + k * kVecs, staged, scratch, r, mask);
+    }
+    if (r < 3) stage_coord(slots + 8 * kVecs, parts, kParts - 1, i, r);
+    __syncwarp(mask);
+#pragma unroll 1
+    for (uint32_t w = 9; w > 1;) {
+      const uint32_t h = w / 2;
+#pragma unroll 1
+      for (uint32_t k = 0; k < h; k++) add_lanes<kLanes>(slots + k * kVecs, slots + (k + h) * kVecs, scratch, r, mask);
+      if (w & 1) {
+        for (int v = r; v < kVecs; v += kLanes) slots[h * kVecs + v] = slots[(w - 1) * kVecs + v];
+        __syncwarp(mask);
+      }
+      w = h + (w & 1);
+    }
+
+    // phi(P) = (beta X1, Y1, Z1) against -[z^2]P = (X2, -Y2, Z2): lane 0
+    // takes beta X1 Z2, lane 1 X2 Z1, lane 2 Y1 Z2, lane 3 -Y2 Z1.
+    const uint4* p = points + (size_t)i * kVecs;
+    const Elt x1 = ldg(p), y1 = ldg(p + 3), z1 = ldg(p + 6);
+    const Elt z2 = lds(slots + 6);
+    const Elt phix = mul(x1, beta_mont());
+    const Elt left = sel(r == 0, phix, sel(r == 1, lds(slots), sel(r == 2, y1, sub(zero(), lds(slots + 3)))));
+    sts(scratch + 3 * r, mul(left, sel(r == 0 || r == 2, z2, z1)));
+    __syncwarp(mask);
+    if (r == 0) {
+      const bool eq_x = equal(lds(scratch), lds(scratch + 3));
+      const bool eq_y = equal(lds(scratch + 6), lds(scratch + 9));
+      const bool inf_a = is_zero(z1), inf_b = is_zero(z2);
+      in_group = (eq_x && eq_y && !inf_a && !inf_b) || (inf_a && inf_b);
+      sub_ok[i] = in_group;
+    }
+  }
+  if (flags != nullptr) {
+    const bool lead = live && r == 0;
+    if (!__syncthreads_and(!lead || in_group) && threadIdx.x == 0) flags[1] = 0;
+    const bool decoded = !lead || dec_ok == nullptr || dec_ok[i] != 0;
+    if (!__syncthreads_and(decoded) && threadIdx.x == 0) flags[0] = 0;
+  }
+}
+
+bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
+
+// The opt-in to more than 48 KB of dynamic shared memory is a function
+// attribute of the current device's context: set at every launch, to what
+// this one needs, as the chain launchers of field_kernels.cu do.
+template <int T>
+int launch_decompress(const void* comp, void* out, void* ok, void* flags, long long n, cudaStream_t s) {
+  static const PowDigits e = sqrt_digits();
+  const size_t smem = ((size_t)e.top * Fp::N * 4 + 2 * Fp::N * 4) * T;  // the tables, then xm and rhs
+  const cudaError_t opt_in = cudaFuncSetAttribute(decompress_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  decompress_kernel<T><<<(unsigned)((n + T - 1) / T), T, smem, s>>>(
+      (const uint4*)comp, (uint4*)out, (uint8_t*)ok, (int*)flags, (uint32_t)n, e);
+  return (int)cudaGetLastError();
+}
+
+template <int T>
+int launch_subgroup(const void* points, const Parts& parts, const void* dec_ok, void* sub_ok, void* flags,
+                    long long n, cudaStream_t s) {
+  constexpr int kPoints = T / kLanes;
+  const size_t smem = (size_t)kPoints * (kSlots * kVecs + kScratchVecs) * 16;
+  const cudaError_t opt_in = cudaFuncSetAttribute(subgroup_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  subgroup_kernel<T><<<(unsigned)((n + kPoints - 1) / kPoints), T, smem, s>>>(
+      (const uint4*)points, parts, (const uint8_t*)dec_ok, (uint8_t*)sub_ok, (int*)flags, (uint32_t)n);
+  return (int)cudaGetLastError();
+}
+
+bool bad_count(long long n) { return n < 1 || n >= (1LL << 29); }
+
+}  // namespace
+
+// Kernel A: comp [n, 48] uint8 -> points [n, 3, 12], ok [n] uint8; flags
+// [2] int32 set to 1 when not null.
+extern "C" int kzg_g1_decompress(const void* comp, void* points, void* ok, void* flags, long long n,
+                                 void* stream) {
+  if (!aligned(comp) || !aligned(points) || bad_count(n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (block_threads(n)) {
+    case 128: return launch_decompress<128>(comp, points, ok, flags, n, s);
+    case 64: return launch_decompress<64>(comp, points, ok, flags, n, s);
+    default: return launch_decompress<32>(comp, points, ok, flags, n, s);
+  }
+}
+
+// Kernel B: points [n, 3, 12]; bases and bases2 [66, n, 3, 12] whose rows
+// lie row_stride 32-bit words apart (the even and odd rows of the K4 chain
+// tensor, or any two such tables) -> sub_ok [n] uint8.  dec_ok [n] uint8
+// and flags [2] int32 may be null (no flags then).
+extern "C" int kzg_g1_subgroup_check(const void* points, const void* bases, const void* bases2,
+                                     long long row_stride, const void* dec_ok, void* sub_ok, void* flags,
+                                     long long n, void* stream) {
+  if (!aligned(points) || !aligned(bases) || !aligned(bases2) || row_stride % 4 || bad_count(n))
+    return (int)cudaErrorInvalidValue;
+  Parts parts{};
+  for (int j = 0, k = 0; j < kWindows; j++) {
+    const int d = kZ2Digits[j];
+    if (d == 0) continue;
+    parts.row[k] = (const uint4*)(d == 2 || d == -2 ? bases2 : bases) + j * (row_stride / 4);
+    if (d < 0) parts.neg |= 1u << k;
+    k++;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (block_threads(4 * n)) {
+    case 128: return launch_subgroup<128>(points, parts, dec_ok, sub_ok, flags, n, s);
+    case 64: return launch_subgroup<64>(points, parts, dec_ok, sub_ok, flags, n, s);
+    default: return launch_subgroup<32>(points, parts, dec_ok, sub_ok, flags, n, s);
+  }
+}

@@ -61,6 +61,8 @@ ENTRY_POINTS = {
     "kzg_glv_digits": ("msm_kernels.cu", [_P, _P, _I64, _P]),
     "kzg_msm_glv": ("msm_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
+    "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _P]),
+    "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _P]),
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,
@@ -154,8 +156,8 @@ def _func(name: str):
 
 def launch(name: str, device, *args) -> None:
     """Launch entry point ``name`` on ``device``'s current stream: ``args``
-    are tensors (passed as device pointers), ints, and ``bytes`` (passed as
-    host pointers)."""
+    are tensors (passed as device pointers), ints, ``bytes`` (passed as
+    host pointers) and None (a null pointer)."""
     import torch
 
     if device.type != "cuda":

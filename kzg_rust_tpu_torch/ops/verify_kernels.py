@@ -4,17 +4,19 @@ Counterpart of the JAX package's ``ops/verify_kernels.py``, as three stages
 of kernel launches on one stream (CUDA launches are asynchronous, so the
 host's Fiat-Shamir hashing overlaps stage 1):
 
-* stage 1, :func:`batch_points`: G1 decompression (an Fp square root), the
-  66-step window-base doubling chain (one K4 chain launch) and the GLV
-  subgroup check;
+* stage 1, :func:`batch_points`: three launches, G1 decompression with its
+  Fp square root (kernel A), the 131-step window-base doubling chain (one
+  K4 chain launch) and the GLV subgroup check with the stage's flags
+  (kernel B), A and B in ``csrc/stage1_kernels.cu``;
 * :func:`bary_batch_from_bytes`: blob ingest, canonicality and the batched
   barycentric evaluation;
 * stage 2, :func:`batch_stage2`: the RLC combination as one wide select
   and tree sum over the stage-1 bases, minus one generator multiple.
 
-Every Fp and Fr product is K1/K2 and every point add and double is K3/K4
-(see :mod:`.limbs` and :mod:`.curve`); selects, stacks and byte handling are
-plain tensor ops.  On CPU tensors the same code runs the plain versions.
+Elsewhere every Fp and Fr product is K1/K2 and every point add and double
+is K3/K4 (see :mod:`.limbs` and :mod:`.curve`); selects, stacks and byte
+handling are plain tensor ops.  On CPU tensors the same code runs the plain
+versions (``*_plain``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..golden.field import P as _P
+from . import _build
 from . import curve as C
 from . import glv
 from . import limbs as L
@@ -44,29 +47,32 @@ _HALF_P1 = (_P + 1) // 2
 # ---------------------------------------------------------------------------
 
 
-def g1_uncompress_points(comp: torch.Tensor):
-    """[N, 48] uint8 ZCash-compressed G1 -> ([N, 3, 12] Montgomery
-    projective points, ok [N] bool).  The golden ``g1_uncompress`` rules:
-    compression bit required, canonical x < p, on-curve (the square root
-    must exist), strict infinity encoding (0xc0 then zeros), sign =
-    y > (p-1)/2.  Invalid rows yield ok=False (their points are unspecified)."""
+def g1_uncompress_points_plain(comp: torch.Tensor):
+    """Plain version of kernel A (``kzg_g1_decompress``), any device: [N, 48]
+    uint8 ZCash-compressed G1 -> ([N, 3, 12] Montgomery projective points,
+    ok [N] bool).  The golden ``g1_uncompress`` rules: compression bit
+    required, canonical x < p, on-curve (the square root must exist), strict
+    infinity encoding (0xc0 then zeros), sign = y > (p-1)/2.  Invalid rows
+    yield ok=False (their points are unspecified, but the kernel gives the
+    same words)."""
     dev = comp.device
+    mul = lambda u, v: L.mont_mul_plain(FP, u, v)  # noqa: E731
     flags = comp[:, 0].to(torch.int32)
     comp_bit = (flags & 0x80) != 0
     inf_bit = (flags & 0x40) != 0
     sign_bit = (flags & 0x20) != 0
     first = (flags & 0x1F).to(torch.uint8)
     x = L.bytes_be_to_words(torch.cat([first[:, None], comp[:, 1:]], dim=1))
-    x_ok = ~L.geq_mod(FP, x)
+    x_ok = ~L.cmp_plain(x, FP.const("mod", dev), 1)
     # Clamp out-of-range x to 0 so the Montgomery ops stay in range (the row
     # is already marked invalid; its point is never trusted).
     x = torch.where(x_ok[:, None], x, 0)
-    xm = L.to_mont(FP, x)
-    rhs = L.add_mod(FP, L.mont_mul(FP, xm, L.mont_sqr(FP, xm)), FP.const(_B4_MONT, dev))
-    ym = L.mont_pow_const(FP, rhs, (_P + 1) // 4)
-    on_curve = L.eq(L.mont_sqr(FP, ym), rhs)
-    y_large = L.geq_const(FP, L.from_mont(FP, ym), _HALF_P1)
-    ym = torch.where((y_large != sign_bit)[:, None], L.neg_mod(FP, ym), ym)
+    xm = mul(x, FP.const("r2", dev))
+    rhs = L.add_mod_plain(FP, mul(xm, mul(xm, xm)), FP.const(_B4_MONT, dev))
+    ym = L.mont_pow_const_plain(FP, rhs, (_P + 1) // 4)
+    on_curve = L.cmp_plain(mul(ym, ym), rhs, 0)
+    y_large = L.cmp_plain(mul(ym, FP.const("one", dev)), FP.const(_HALF_P1, dev), 1)
+    ym = torch.where((y_large != sign_bit)[:, None], L.sub_mod_plain(FP, FP.const("zero", dev), ym), ym)
 
     inf_enc_ok = inf_bit & ~sign_bit & (first == 0) & (comp[:, 1:] == 0).all(dim=1)
     ok = comp_bit & torch.where(inf_bit, inf_enc_ok, x_ok & on_curve)
@@ -77,6 +83,36 @@ def g1_uncompress_points(comp: torch.Tensor):
     yo = torch.where(inf, one_m, ym)
     zo = torch.where(inf, 0, one_m)
     return torch.stack([xo, yo, zo], dim=-2), ok
+
+
+def _check_compressed(comp: torch.Tensor) -> None:
+    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] != 48:
+        raise ValueError(f"expected uint8 [N, 48] compressed points, got {comp.dtype} {tuple(comp.shape)}")
+
+
+def _decompress(comp: torch.Tensor, out: torch.Tensor, flags=None) -> torch.Tensor:
+    """Kernel A: decompress ``comp`` into ``out`` [N, 3, 12] (contiguous);
+    returns ok [N] uint8.  ``flags`` [2] int32, when given, is set to 1
+    (kernel B clears it)."""
+    n = comp.shape[0]
+    if not comp.is_contiguous() or not out.is_contiguous():
+        raise ValueError("kzg_g1_decompress: the compressed rows and the points must be contiguous")
+    L._check_aligned("kzg_g1_decompress", comp, out)
+    ok = torch.empty(n, dtype=torch.uint8, device=comp.device)
+    _build.launch("kzg_g1_decompress", comp.device, comp, out, ok, flags, n)
+    return ok
+
+
+def g1_uncompress_points(comp: torch.Tensor):
+    """[N, 48] uint8 ZCash-compressed G1 -> ([N, 3, 12] Montgomery
+    projective points, ok [N] bool), by :func:`g1_uncompress_points_plain`'s
+    rules.  On a CUDA tensor one launch of kernel A (``kzg_g1_decompress``,
+    ``csrc/stage1_kernels.cu``), on a CPU tensor the plain version."""
+    _check_compressed(comp)
+    if comp.device.type == "cpu":
+        return g1_uncompress_points_plain(comp)
+    points = torch.empty((comp.shape[0], 3, FP.nwords), dtype=torch.int32, device=comp.device)
+    return points, _decompress(comp, points).view(torch.bool)
 
 
 # ---------------------------------------------------------------------------
@@ -95,28 +131,85 @@ def bases_chain(points: torch.Tensor):
     return chain[0::2], chain[1::2]
 
 
-def subgroup_check_from_bases(points, bases, bases2):
-    """GLV subgroup membership phi(P) == -[z^2]P for every point, with
-    [z^2]P assembled from the shared window bases via the constant signed
-    base-4 digits of z^2 (17 of 66 windows nonzero, so the selection is
-    static).  Infinity passes.  Returns bool [N]."""
+def subgroup_check_from_bases_plain(points, bases, bases2):
+    """Plain version of kernel B (``kzg_g1_subgroup_check``), any device:
+    GLV subgroup membership phi(P) == -[z^2]P for every point, with [z^2]P
+    assembled from the shared window bases via the constant signed base-4
+    digits of z^2 (17 of 66 windows nonzero, so the selection is static) as
+    the halving tree of :func:`.curve.sum_points`.  Infinity passes.
+    Returns bool [N]."""
+    mul = lambda u, v: L.mont_mul_plain(FP, u, v)  # noqa: E731
+    zero = FP.const("zero", points.device)
     parts = []
     for j, d in enumerate(_Z2_DIGITS.tolist()):
         if d == 0:
             continue
         p = (bases2 if abs(d) == 2 else bases)[j]
-        parts.append(C.point_neg(p) if d < 0 else p)
-    z2p = C.sum_points(torch.stack(parts))  # [N, 3, 12] = [z^2] P
-    beta = FP.const(C.BETA_MONT, points.device)
-    phix = L.mont_mul(FP, points[..., 0, :], beta)
+        if d < 0:
+            p = torch.stack([p[..., 0, :], L.sub_mod_plain(FP, zero, p[..., 1, :]), p[..., 2, :]], dim=-2)
+        parts.append(p)
+    z2p = C.sum_points(torch.stack(parts), add=C.proj_add_plain)  # [N, 3, 12] = [z^2] P
+    phix = mul(points[..., 0, :], FP.const(C.BETA_MONT, points.device))
     phiy = points[..., 1, :]
     phiz = points[..., 2, :]
-    x2, y2, z2 = z2p[..., 0, :], L.neg_mod(FP, z2p[..., 1, :]), z2p[..., 2, :]
-    eq_x = L.eq(L.mont_mul(FP, phix, z2), L.mont_mul(FP, x2, phiz))
-    eq_y = L.eq(L.mont_mul(FP, phiy, z2), L.mont_mul(FP, y2, phiz))
-    inf_a = L.is_zero(phiz)
-    inf_b = L.is_zero(z2)
+    x2, y2, z2 = z2p[..., 0, :], L.sub_mod_plain(FP, zero, z2p[..., 1, :]), z2p[..., 2, :]
+    eq_x = L.cmp_plain(mul(phix, z2), mul(x2, phiz), 0)
+    eq_y = L.cmp_plain(mul(phiy, z2), mul(y2, phiz), 0)
+    inf_a = L.cmp_plain(phiz, zero, 0)
+    inf_b = L.cmp_plain(z2, zero, 0)
     return (eq_x & eq_y & ~inf_a & ~inf_b) | (inf_a & inf_b)
+
+
+def _check_bases(points, bases, bases2) -> None:
+    C._check_points(points)
+    if points.dim() != 3:
+        raise ValueError(f"expected [N, 3, {FP.nwords}] points, got {tuple(points.shape)}")
+    shape = (NUM_WINDOWS,) + tuple(points.shape)
+    for t in (bases, bases2):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != points.device:
+            raise ValueError(f"expected int32 {shape} window bases on {points.device}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _subgroup(points, bases, bases2, dec_ok=None, flags=None) -> torch.Tensor:
+    """Kernel B over ``points`` and its window bases; returns sub_ok [N]
+    uint8.  With ``flags`` [2] int32 (set to 1 by kernel A), flag 1 is
+    cleared where a row fails and, with ``dec_ok`` (A's ok), flag 0 where a
+    row does not decode."""
+    n = points.shape[0]
+    row = (n * 3 * FP.nwords, 3 * FP.nwords, FP.nwords, 1)
+    if not points.is_contiguous() or bases.stride() != bases2.stride() or bases.stride()[1:] != row[1:]:
+        raise ValueError("kzg_g1_subgroup_check: points contiguous, window rows contiguous and alike in stride")
+    if bases.stride(0) % 4:
+        raise ValueError(f"kzg_g1_subgroup_check: window rows {bases.stride(0)} words apart, not a multiple of 4")
+    L._check_aligned("kzg_g1_subgroup_check", points, bases, bases2)
+    sub_ok = torch.empty(n, dtype=torch.uint8, device=points.device)
+    _build.launch(
+        "kzg_g1_subgroup_check", points.device, points, bases, bases2, bases.stride(0), dec_ok, sub_ok, flags, n
+    )
+    return sub_ok
+
+
+def subgroup_check_from_bases(points, bases, bases2):
+    """GLV subgroup membership of every point (bool [N]), by
+    :func:`subgroup_check_from_bases_plain`'s rules and order.  On a CUDA
+    tensor one launch of kernel B (``kzg_g1_subgroup_check``,
+    ``csrc/stage1_kernels.cu``), on a CPU tensor the plain version."""
+    _check_bases(points, bases, bases2)
+    if points.device.type == "cpu":
+        return subgroup_check_from_bases_plain(points, bases, bases2)
+    return _subgroup(points, bases, bases2).view(torch.bool)
+
+
+def batch_points_plain(comp_bytes: torch.Tensor):
+    """Plain version of stage 1 (:func:`batch_points`), any device."""
+    points, dec_ok = g1_uncompress_points_plain(comp_bytes)
+    chain = torch.empty((2 * NUM_WINDOWS,) + points.shape, dtype=torch.int32, device=points.device)
+    chain[0] = points
+    chain[1:] = C.proj_double_chain_plain(points, 2 * NUM_WINDOWS - 1)
+    bases, bases2 = chain[0::2], chain[1::2]
+    sub_ok = subgroup_check_from_bases_plain(points, bases, bases2)
+    flags = torch.stack([dec_ok.all(), sub_ok.all()]).to(torch.int32)
+    return bases, bases2, flags
 
 
 def batch_points(comp_bytes: torch.Tensor):
@@ -124,11 +217,22 @@ def batch_points(comp_bytes: torch.Tensor):
     b, row 2b+1 = proof b, matching the stage-2 lane layout; padded rows
     encode infinity) -> (bases, bases2, flags): ``bases``/``bases2``
     [W, 2B, 3, 12] stay on the device as stage-2 inputs; ``flags`` [2]
-    int32 (flag 0: all points decode, flag 1: all in the subgroup)."""
-    points, dec_ok = g1_uncompress_points(comp_bytes)
-    bases, bases2 = bases_chain(points)
-    sub_ok = subgroup_check_from_bases(points, bases, bases2)
-    flags = torch.stack([dec_ok.all(), sub_ok.all()]).to(torch.int32)
+    int32 (flag 0: all points decode, flag 1: all in the subgroup).
+
+    On a CUDA tensor three launches with only allocations between them:
+    kernel A decompresses into row 0 of the chain tensor, the K4 chain
+    doubles it into the other 131 rows, kernel B checks the subgroup and
+    writes both flags.  On a CPU tensor the plain versions."""
+    _check_compressed(comp_bytes)
+    if comp_bytes.device.type == "cpu":
+        return batch_points_plain(comp_bytes)
+    n = comp_bytes.shape[0]
+    chain = torch.empty((2 * NUM_WINDOWS, n, 3, FP.nwords), dtype=torch.int32, device=comp_bytes.device)
+    flags = torch.empty(2, dtype=torch.int32, device=comp_bytes.device)
+    dec_ok = _decompress(comp_bytes, chain[0], flags)
+    C.proj_double_chain(chain[0], 2 * NUM_WINDOWS - 1, out=chain[1:])
+    bases, bases2 = chain[0::2], chain[1::2]
+    _subgroup(chain[0], bases, bases2, dec_ok, flags)
     return bases, bases2, flags
 
 

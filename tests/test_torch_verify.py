@@ -1,23 +1,34 @@
 """The port's verification stages (kzg_rust_tpu_torch.ops.verify_kernels, on
-the plain versions of K1-K4) against the JAX package's jitted stage
-programs, at the shapes tests/test_batch_pipeline.py already compiles
-(4 padded blobs: 8 stage-1 rows, the minimal preset's 4-element blobs).
+the plain versions of K1-K4 and of stage 1's kernels A and B) against the
+JAX package's jitted stage programs, at the shapes
+tests/test_batch_pipeline.py already compiles (4 padded blobs: 8 stage-1
+rows, the minimal preset's 4-element blobs).
 
 Inputs come from seeded generators and go through both packages; every
 comparison is exact: flags, projective words where the two compute the
 same representation, canonical ys, and affine points where the
-summation orders differ.
+summation orders differ.  Stage 1's rows are checked one by one against
+the JAX package's decompression and subgroup-check programs and the
+golden model; kernels A and B themselves run only on a card
+(chip_smoke.py holds them against these plain versions there), so here
+their constants are parsed from the CUDA source and their wrappers'
+checks are exercised.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import random
+import re
 import types
+from gc import collect as collect_garbage
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from kzg_rust_tpu.ops import limbs as JL
@@ -30,7 +41,9 @@ from kzg_rust_tpu_torch.backends.golden_backend import GoldenBackend
 from kzg_rust_tpu_torch.errors import BadArgs
 from kzg_rust_tpu_torch.golden import curve as gc
 from kzg_rust_tpu_torch.golden.field import P, R, fp_sqrt
+from kzg_rust_tpu_torch.ops import _build
 from kzg_rust_tpu_torch.ops import curve as C
+from kzg_rust_tpu_torch.ops import glv
 from kzg_rust_tpu_torch.ops import jax_state as JS
 from kzg_rust_tpu_torch.ops import limbs as L
 from kzg_rust_tpu_torch.ops import msm as M
@@ -44,13 +57,20 @@ rng = random.Random(0x7E571)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _worker_resources():
     """The plain versions run many small tensor ops; one intra-op thread per
-    test worker keeps parallel workers from oversubscribing the cores."""
+    test worker keeps parallel workers from oversubscribing the cores.  At
+    the end the module's compiled JAX programs are dropped and the freed
+    heap goes back to the OS, as tests/test_torch_msm.py does."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+    jax.clear_caches()
+    collect_garbage()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc
+    if trim is not None:
+        trim(0)
 
 
 def _non_subgroup_point():
@@ -200,3 +220,161 @@ def test_stage2_matches_jax(rows, jax_stage1):
         )
         assert C.proj_to_points(got) == want_aff
     assert (M.recode_signed_digits([5, R - 1], 2) == JM.recode_signed_digits([5, R - 1], 2)).all()
+
+
+# ---------------------------------------------------------------------------
+# Stage 1 row by row: kernel A's and kernel B's rules (their plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _x_row(x, bits=0x80):
+    row = bytearray(x.to_bytes(48, "big"))
+    row[0] |= bits
+    return bytes(row)
+
+
+@pytest.fixture(scope="module")
+def edge_rows():
+    """The rows the bad set lacks: x = p - 1, an x whose x^3 + 4 is not a
+    square, infinity with the sign bit set, infinity without the compression
+    bit, a valid point in both signs, a point on the curve off the subgroup,
+    and x = 0 (the point (0, 2), off the subgroup)."""
+    prng = random.Random(0x57A6E1)
+    nonsquare = next(x for x in itertools.count(1) if fp_sqrt((x**3 + 4) % P) is None)
+    valid = gc.g1_compress(gc.g1_mul(gc.G1_GENERATOR, prng.randrange(1, R)))
+    while True:
+        x = prng.randrange(P)
+        y = fp_sqrt((x**3 + 4) % P)
+        if y is not None and not gc.g1_in_subgroup((x, y)):
+            break
+    return [
+        _x_row(P - 1),
+        _x_row(nonsquare),
+        b"\xe0" + b"\x00" * 47,
+        b"\x40" + b"\x00" * 47,
+        valid,
+        bytes([valid[0] ^ 0x20]) + valid[1:],
+        gc.g1_compress((x, y)),
+        _x_row(0),
+    ]
+
+
+@pytest.fixture(scope="module")
+def row_sets(rows, edge_rows):
+    return {"bad": rows[1], "edge": edge_rows}
+
+
+def _golden_rows(rows_):
+    """Per row: (decodes, affine point, in the subgroup) by the golden model."""
+    out = []
+    for r in rows_:
+        try:
+            pt = gc.g1_uncompress(r)
+        except BadArgs:
+            out.append((False, None, None))
+            continue
+        out.append((True, pt, gc.g1_in_subgroup(pt)))
+    return out
+
+
+@pytest.mark.parametrize("which", ["bad", "edge"])
+def test_stage1_rows_match_jax_and_golden(row_sets, which):
+    """Kernel A's rules row by row: ok equals the JAX g1_uncompress_kernel's
+    and the golden decoder's, and every row that decodes has the JAX
+    package's projective words and the golden point.  Kernel B's rules: on
+    every row that decodes, the subgroup bit equals the JAX
+    subgroup_check_kernel's and golden g1_in_subgroup.  The stage's flags
+    equal the JAX batch_points_kernel's."""
+    rows_ = row_sets[which]
+    comp = _comp(rows_)
+    jpts, jok = (np.asarray(t) for t in JV.g1_uncompress_kernel(jnp.asarray(comp)))
+    jsub = np.asarray(JV.subgroup_check_kernel(jnp.asarray(jpts)))
+    jflags = np.asarray(JV.batch_points_kernel(jnp.asarray(comp))[2])
+    want = _golden_rows(rows_)
+
+    points, ok = V.g1_uncompress_points(torch.from_numpy(comp))
+    assert ok.tolist() == jok.tolist() == [w[0] for w in want]
+    jwords = JS.points_from_jax(jpts)
+    affine = C.proj_to_points(points)
+    bases, bases2 = V.bases_chain(points)
+    sub = V.subgroup_check_from_bases(points, bases, bases2).tolist()
+    for i, (decodes, pt, in_sub) in enumerate(want):
+        if decodes:
+            assert torch.equal(points[i], jwords[i]), i
+            assert affine[i] == pt, i
+            assert sub[i] == bool(jsub[i]) == in_sub, i
+    assert V.batch_points(torch.from_numpy(comp))[2].tolist() == jflags.tolist()
+    assert which != "edge" or set(ok.tolist()) == set(sub) == {True, False}
+
+
+def _stage1_source():
+    return open(f"{_build.CSRC}/stage1_kernels.cu").read()
+
+
+def test_stage1_kernel_digits_match():
+    """Kernel B's compile-time digits are the signed base-4 recoding of z^2
+    that the plain version and the JAX package use (17 nonzero)."""
+    body = re.search(r"constexpr int kZ2Digits\[kWindows\] = \{([^}]*)\}", _stage1_source()).group(1)
+    digits = [int(d) for d in body.replace("\n", " ").split(",")]
+    want = glv.recode_base4_signed([glv.Z2])[:, 0].tolist()
+    assert digits == want == V._Z2_DIGITS.tolist() == JV._Z2_DIGITS.tolist()
+    assert sum(1 for d in digits if d) == int(re.search(r"constexpr int kParts = (\d+);", _stage1_source()).group(1))
+    assert sum(d * 4**j for j, d in enumerate(digits)) == glv.Z2
+
+
+def test_stage1_kernel_constants_match():
+    """The immediates of csrc/stage1_kernels.cu are the Python constants:
+    R^2, mont(1), mont(4), (p + 1) / 2, mont(beta) and the square root's
+    exponent (p + 1) / 4; both entry points build from that file."""
+    text = _stage1_source()
+    consts = {}
+    for name, body in re.findall(r"KZG_CONSTANT\((\w+), (0x[^)]*)\)", text):
+        words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+        consts[name] = sum(w << (32 * k) for k, w in enumerate(words))
+    assert consts == {
+        "r2_mod_p": L.FP.r2,
+        "one_mont": L.FP.mont_r,
+        "b4_mont": V._B4_MONT,
+        "half_p1": V._HALF_P1,
+        "beta_mont": C.BETA_MONT,
+    }
+    body = re.search(r"constexpr uint32_t kSqrtExp\[Fp::N\] = \{([^}]*)\}", text).group(1)
+    assert sum(int(w.strip().rstrip("u"), 16) << (32 * k) for k, w in enumerate(body.split(","))) == (P + 1) // 4
+    for entry in ("kzg_g1_decompress", "kzg_g1_subgroup_check"):
+        assert _build.ENTRY_POINTS[entry][0] == "stage1_kernels.cu"
+        assert f'extern "C" int {entry}(' in text
+
+
+def test_stage1_wrappers_check_their_operands(rows):
+    """Wrong types and shapes raise; on a tensor off the CPU the wrappers
+    launch kernels A and B or raise, and never take the plain version (the
+    meta device has no kernels: the launch refuses it, and nothing is
+    counted)."""
+    comp = torch.from_numpy(_comp(rows[0]))
+    for bad in (comp.to(torch.int32), comp[:, :47], comp[0]):
+        with pytest.raises(ValueError, match="compressed"):
+            V.g1_uncompress_points(bad)
+        with pytest.raises(ValueError, match="compressed"):
+            V.batch_points(bad)
+    points, _ = V.g1_uncompress_points(comp)
+    bases, bases2 = V.bases_chain(points)
+    with pytest.raises(ValueError, match="window bases"):
+        V.subgroup_check_from_bases(points, bases[:-1], bases2[:-1])
+    with pytest.raises(ValueError, match="window bases"):
+        V.subgroup_check_from_bases(points, bases.to(torch.int64), bases2)
+    with pytest.raises(ValueError, match="points"):
+        V.subgroup_check_from_bases(points[None], bases[:, None], bases2[:, None])
+
+    _build.reset_launches()
+    meta = comp.to("meta")
+    with pytest.raises(ValueError, match="contiguous"):
+        V.g1_uncompress_points(torch.empty((8, 96), dtype=torch.uint8, device="meta")[:, ::2])
+    for call in (lambda: V.g1_uncompress_points(meta), lambda: V.batch_points(meta)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    chain = torch.empty((2 * V.NUM_WINDOWS,) + tuple(points.shape), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.subgroup_check_from_bases(chain[0], chain[0::2], chain[1::2])
+    with pytest.raises(ValueError, match="stride"):
+        V.subgroup_check_from_bases(chain[0], chain[0::2], chain[1::2].contiguous())
+    assert all(v == 0 for v in _build.LAUNCHES.values())
