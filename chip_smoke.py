@@ -36,14 +36,21 @@ Phases, any failure of which exits non-zero without the final line:
    timed beside its golden twin;
 3. drive the verify path, ``Kzg.verify_blob_kzg_proof_batch`` through
    ``TorchBackend()`` on the mainnet setup: the 22 mainnet batch vectors,
-   then batches of n = 64 and n = 4096 sampled (numpy seed) from the six
+   then batches of n = 64, 512 and 4096 sampled (numpy seed) from the six
    valid ``verify_blob_kzg_proof`` vectors, with five outcome lanes each
    (valid, swapped proof, non-canonical blob, malformed point, non-subgroup
-   point; the n = 64 lanes cross-checked against the golden backend, and
-   the pairing inputs of its valid and swapped batches also put through the
-   pure-Python pairing), the launch counts of one valid batch, stage times,
-   host step times (the pairing in the engine) and peak memory; at n = 4096
-   a device batch beside the engine's threads verifying the same batch;
+   point, the bad row in the batch's last chunk; the n = 64 lanes
+   cross-checked against the golden backend, and the pairing inputs of its
+   valid and swapped batches also put through the pure-Python pairing),
+   the launch counts of one valid batch, stage times and host step times
+   (the pairing in the engine); at n = 512 and 4096, in the chunked regime,
+   every lane held word for word (flags and ys of the packed fetch) against
+   the full-width path; at n = 4096 the peak device memory under its cap,
+   one replay of the barycentric graph against the same chunk launched
+   directly, the sweeps of both chunk widths (stage 1 in chunks held
+   against full width), one batch under torch.profiler (top device
+   operations, the share of upload time beside a kernel), and a device
+   batch beside the engine's threads verifying the same batch;
 3b. drive the prover path through ``TorchBackend()``: build the mainnet
    MSM table on the card (time, bytes, peak memory), run every mainnet
    vector of ``blob_to_kzg_commitment``, ``compute_kzg_proof``,
@@ -57,10 +64,12 @@ Phases, any failure of which exits non-zero without the final line:
    ``KZG_TORCH_EVAL=host``) the 94 single-blob vectors; host-clock times
    (median of 3) printed beside the card's on one line;
 4. check that every kernel of the path launched in the n = 64 batch, one
-   commit or one proof, that at both n stage 1 was exactly kernel A, the
-   window-base chain and kernel B (one launch each, nothing else) and the
-   Fermat inversion and x^4096 one each of the Fr chain, and print the
-   report lines and the ``kernels`` JSON line.
+   commit or one proof, that at every n a valid batch made the launches
+   ``batch_launches`` counts, stage 1 being exactly kernel A, the
+   window-base chain and kernel B a chunk (nothing else) and the
+   barycentric evaluation its 49 launches at full width (the Fermat
+   inversion and x^4096 one each of the Fr chain) or one graph replay a
+   chunk, and print the report lines and the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -82,7 +91,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0x5EED
 BAD_FROM_END = 3  # the corrupted lane sits near the end of the batch
-BATCH_SIZES = (64, 4096)  # a block's batch, and bulk sync; the first is cross-checked on golden
+# A block's batch, the first size of the chunked regime, and bulk sync; the
+# first is cross-checked on golden.
+BATCH_SIZES = (64, 512, 4096)
+# The chunk widths swept at the largest n (blobs; "full" is one chunk), and
+# the cap on its peak device memory: the caching allocator's peak reserved
+# bytes over four batches (it holds the barycentric graph's private pool,
+# whose blocks the allocated count leaves out), from an emptied cache; the
+# first card runs of the chunked path reserved 0.91 and 0.98 GB.
+BARY_SWEEP = (64, 128, 256, 512)
+STAGE1_SWEEP = (512, 1024, 2048, "full")
+PEAK_MEM_CAP = 1_200_000_000
 # Built and held against their plain versions, but no counted run (an
 # n = 64 batch, a commit, a proof) launches them: the barycentric domain sum
 # runs in kzg_fr_sum_rows, the window-base chains run K4 as
@@ -102,7 +121,9 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp",
 # barycentric evaluation (4096 blobs x 64), and K2 at its widest, the
 # barycentric terms (4096 x 4096); the square-root chain at stage 1's widths
 # (2 * 4096 and 2 * 64 points; its body runs inside kernel A), the Fermat
-# and x^4096 chains over the padded blobs (4096 and 64); the domain sum at
+# and x^4096 chains over the blobs of one barycentric chunk
+# (BARY_CHUNK_BLOBS, at n = 4096) and of the padded batch (64, and 4096 at
+# full width as before the chunked regime); the domain sum at
 # n = 64 (4096 rows of 64 blobs); K3 at the subgroup check's former first
 # tree level (8 of its 17 window rows x 8192 points) and at stage 2's
 # widest, the right-hand tree's first level (66 windows x 4096 blobs x 4
@@ -117,13 +138,15 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp",
 # domain sum (kzg_fr_sum_rows, [4096, 4096] rows in chunks of 64 to
 # [64, 4096], then to [4096]: two launches), and the Fp negation of stage
 # 2's selected Y words (kzg_fp_sub, zero minus 66 windows x 4096 blobs x 6
-# lanes), stage 2 being the only stage that launches it.
+# lanes), stage 2 being the only stage that launches it; the barycentric
+# launchers and K2 also at the shapes one chunk gives them (4096 domain
+# rows x BARY_CHUNK_BLOBS blobs), which is where n = 4096 runs them now.
 SHAPES = {
     "fp": 8192,
     "fr": 262144,
     "fr_wide": 4096 * 4096,
     "fp_pow": (8192, 128),
-    "fr_pow": (4096, 64),
+    "fr_pow": (64, 4096),  # and BARY_CHUNK_BLOBS, first
     "sum": (4096, 64),
     "add": (65536, 540672),
     "double": (8192, 128),
@@ -133,9 +156,15 @@ SHAPES = {
     "beta": (66, 4096, 3),
     "neg": (66, 4096, 6),
 }
-# Launches in one valid batch at n = 64 and 4096, one commit and one proof
-# with z out of the domain.  The MSM in each is M1 and M2, one launch each.
-PATH_LAUNCHES = {"n64": 92, "n4096": 104, "commit": 3, "proof": 54}
+# Launches in one commit and one proof with z out of the domain (the MSM in
+# each is M1 and M2, one launch each); those of one valid batch are
+# batch_launches(npad): stage 1, the barycentric evaluation (49 launches at
+# full width, one replay of its graph a chunk in the chunked regime) and
+# stage 2 (3 Fp negations, one beta product, and the K3 trees: over the
+# 132 npad left-hand and 264 npad right-hand lanes, the generator's 64
+# windows, and the final add).
+PATH_LAUNCHES = {"commit": 3, "proof": 54}
+BARY_LAUNCHES = 49
 # Stage 1 on the card: kernel A, the window-base chain, kernel B.
 STAGE1_LAUNCHES = {"kzg_g1_decompress": 1, "kzg_proj_double_chain": 1, "kzg_g1_subgroup_check": 1}
 # M2's sweep on the card: (accumulators an SM, threads a block), each
@@ -237,6 +266,8 @@ def graph_ms(fn, reps: int) -> float:
     one CUDA graph, replayed and timed with CUDA events (no host time)."""
     import torch
 
+    from kzg_rust_tpu_torch.ops import _build
+
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -244,7 +275,7 @@ def graph_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with _build.capturing(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, 3) / reps
@@ -376,6 +407,7 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     import numpy as np
     import torch
 
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
     from kzg_rust_tpu_torch.golden.field import P, R
     from kzg_rust_tpu_torch.ops import curve as C
     from kzg_rust_tpu_torch.ops import limbs as L
@@ -556,10 +588,11 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     # sequence of K1 or K2, which is also timed (CUDA-graph replay and as
     # called).  Edge rows 0, 1 and N - 1 lead every input.
     chains = {}
+    chunk = TB.BARY_CHUNK_BLOBS
     pow_chains = (
         [(L.FP, (P + 1) // 4, "(p+1)/4", n) for n in SHAPES["fp_pow"]]
-        + [(L.FR, R - 2, "r-2", n) for n in SHAPES["fr_pow"]]
-        + [(L.FR, 4096, "4096", SHAPES["fr_pow"][0])]
+        + [(L.FR, R - 2, "r-2", n) for n in dict.fromkeys((chunk,) + SHAPES["fr_pow"])]
+        + [(L.FR, 4096, "4096", chunk)]
     )
     for spec, exponent, label, n in pow_chains:
         nw = spec.nwords
@@ -1006,6 +1039,51 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         plain_reps=1,
     )
     del wide, rows3
+    # The same launchers, and K2, at the shapes one barycentric chunk gives
+    # them (nb domain rows x chunk blobs), the shapes of every n = 4096
+    # launch since the evaluation runs in chunks.
+    record(
+        "kzg_fr_sub",
+        lambda x, w: L.sub_mod(L.FR, x[None], w[:, None]),
+        lambda x, w: L.sub_mod_plain(L.FR, x[None], w[:, None]),
+        (xs[:chunk], roots),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
+        (chunk + nb) * 32 + nb * chunk * 32,
+        nb * chunk * 3 * 8,
+        50,
+        plain_reps=1,
+    )
+    wide = torch.randint(-(1 << 31), 1 << 31, (nb * chunk, 8), dtype=torch.int32, device=device, generator=gen)
+    wide[:, 7] &= 0x7FFFFFFF  # below 2^255: about half of them at or above r
+    record(
+        "kzg_fr_cmp",
+        lambda x: L.geq_mod(L.FR, x).to(torch.int32),
+        lambda x: L.cmp_plain(x, mod_r, 1).to(torch.int32),
+        (wide,),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:299 (geq_const, an XLA op)",
+        nb * chunk * (32 + 1),
+        nb * chunk * 8,
+        50,
+        plain_reps=1,
+    )
+    rows3 = wide.reshape(nb, chunk, 8)
+    rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
+    record(
+        "kzg_fr_sum_rows",
+        lambda x: L.sum_mod(L.FR, x),
+        lambda x: L.sum_mod_plain(L.FR, x),
+        (rows3,),
+        fsrc,
+        "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
+        nb * chunk * 32 + 2 * (nb // 64) * chunk * 32 + chunk * 32,
+        nb * chunk * 3 * 8,
+        50,
+        plain_reps=1,
+    )
+    products["fr"].append(product_row(L.FR, rows3.reshape(-1, 8), rows3.reshape(-1, 8).roll(1, 0).contiguous()))
+    del wide, rows3
     # kzg_fp_sub at stage 2's widest launch: the negated Y words of the
     # selected digit multiples at n = 4096 (zero minus [66, 4096, 6] words,
     # the zero broadcast).
@@ -1037,9 +1115,11 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     k1["product_8192"] = products["fp"][0]
     k1["chain"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][0])]
     k1["chain_at_narrow"] = chains[("fp", "(p+1)/4", SHAPES["fp_pow"][1])]
-    k2 = chains[("fr", "r-2", SHAPES["fr_pow"][0])]
-    k2["at_narrow"] = chains[("fr", "r-2", SHAPES["fr_pow"][1])]
-    k2["x4096"] = chains[("fr", "4096", SHAPES["fr_pow"][0])]
+    k2 = chains[("fr", "r-2", chunk)]
+    for n in SHAPES["fr_pow"]:
+        if n != chunk:
+            k2[f"at_{n}"] = chains[("fr", "r-2", n)]
+    k2["x4096"] = chains[("fr", "4096", chunk)]
     k2["product"] = products["fr"]
     k2["product_ms"] = products["fr"][0]["ms"]
     k2["product_bound_ms"] = products["fr"][0]["bound_ms"]
@@ -1209,6 +1289,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
         MSG_MALFORMED_COMMITMENT,
         MSG_NOT_IN_SUBGROUP,
     )
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
     from kzg_rust_tpu_torch.ops import _build
     from kzg_rust_tpu_torch.ops import verify_kernels as V
 
@@ -1251,7 +1332,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
     nrng = np.random.default_rng(SEED)
     prng = random.Random(SEED)
     sub_point = Bytes48(out_of_subgroup_compressed(prng))
-    report = {"lanes": {}, "launches": {}, "stage1_launches": {}, "stage_ms": {}, "host_ms": {}, "e2e_ms": {}, "blobs_per_s": {}}
+    report = {"lanes": {}, "launches": {}, "stage1_launches": {}, "graph_kernels": {}, "stage_ms": {}, "host_ms": {}, "e2e_ms": {}, "blobs_per_s": {}, "peak_mem_bytes": {}, "peak_reserved_bytes": {}}
 
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
     for n in BATCH_SIZES:
@@ -1298,14 +1379,16 @@ def main_path(backend, settings, host: bool = False) -> dict:
 
         # Launch counts of one valid batch: counts set to 0 just before, read
         # just after; those of its stage 1 as the difference across the
-        # backend's call of verify_kernels.batch_points.
+        # backend's calls of verify_kernels.batch_points (one a chunk).
         stage1 = report["stage1_launches"][n] = {}
         real_stage1 = V.batch_points
 
         def counted_stage1(comp):
             before = dict(_build.LAUNCHES)
             out = real_stage1(comp)
-            stage1.update({e: c - before[e] for e, c in _build.LAUNCHES.items() if c != before[e]})
+            for e, c in _build.LAUNCHES.items():
+                if c != before[e]:
+                    stage1[e] = stage1.get(e, 0) + c - before[e]
             return out
 
         V.batch_points = counted_stage1
@@ -1321,33 +1404,30 @@ def main_path(backend, settings, host: bool = False) -> dict:
         if host and any(report["launches"][n].values()):
             raise AssertionError(f"host placement launched kernels: {report['launches'][n]}")
         log(f"{where}: n={n}: launches in one valid batch: {json.dumps({e: c for e, c in report['launches'][n].items() if c})}")
+        pipe = settings._device_cache.get(("bary_chunks", str(backend.device), TB.BARY_CHUNK_BLOBS))
+        if pipe is not None and pipe.graph is not None and not host:
+            report["graph_kernels"][pipe.graph.name] = pipe.graph.kernels
 
-        # Stage times and end to end, median of 3 runs.
-        if n == large and not host:
-            torch.cuda.reset_peak_memory_stats()
-        stages, e2e, steps = {s: [] for s in ("stage1", "bary", "stage2")}, [], {}
-        for _ in range(3):
+        if not host and npad_of(n) >= 2 * TB.BARY_CHUNK_BLOBS:
+            report.setdefault("chunked_equals_full", {})[n] = chunked_equals_full(backend, settings, lanes, npad_of(n))
+
+        # Stage times and end to end, median of 3 runs.  On the card the
+        # allocator's cache is emptied first, and one untimed batch refills
+        # it, so that the peak counts the path alone and the timed runs take
+        # no new segments.
+        if not host:
             torch.cuda.synchronize()
-            t = time.perf_counter()
-            valid = Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
-            e2e.append((time.perf_counter() - t) * 1e3)
-            if valid is not True:
-                raise AssertionError(f"{where}: n={n}: the valid batch did not verify")
-            if not host:
-                for s, v in backend.stage_ms().items():
-                    stages[s].append(v)
-                for s, v in backend.host_ms.items():
-                    steps.setdefault(s, []).append(v)
-        report["e2e_ms"][n] = statistics.median(e2e)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
+        runs = timed_batches(backend, settings, (blobs, cs, ps), host)
+        report["e2e_ms"][n] = runs["e2e_ms"]
         report["blobs_per_s"][n] = n / (report["e2e_ms"][n] / 1e3)
         if host:
             log(f"{where}: n={n}: end to end {report['e2e_ms'][n]:.1f} ms = {report['blobs_per_s'][n]:.1f} blobs/s (host clock, median of 3)")
             continue
-        if n == large:
-            report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-            report["beside_engine_threads"] = beside_engine_threads(backend, settings, lanes)
-        report["stage_ms"][n] = {s: statistics.median(v) for s, v in stages.items()}
-        report["host_ms"][n] = {s: statistics.median(v) for s, v in steps.items()}
+        report["stage_ms"][n] = runs["stage_ms"]
+        report["host_ms"][n] = runs["host_ms"]
         log(
             f"main: n={n}: stage1 {report['stage_ms'][n]['stage1']:.2f} ms, bary "
             f"{report['stage_ms'][n]['bary']:.2f} ms, stage2 {report['stage_ms'][n]['stage2']:.2f} ms "
@@ -1355,9 +1435,316 @@ def main_path(backend, settings, host: bool = False) -> dict:
             f"{report['blobs_per_s'][n]:.1f} blobs/s (host clock, median of 3)"
         )
         log(f"main: n={n}: host ms between steps (median of 3; the pairing in the engine): {json.dumps(report['host_ms'][n])}")
-    if not host:
-        log(f"main: peak device memory over the n={large} runs: {report['peak_mem_bytes']} bytes")
+        report["peak_mem_bytes"][n] = torch.cuda.max_memory_allocated()
+        report["peak_reserved_bytes"][n] = torch.cuda.max_memory_reserved()
+        log(
+            f"main: n={n}: peak device memory over the 4 runs: {report['peak_mem_bytes'][n]} bytes allocated, "
+            f"{report['peak_reserved_bytes'][n]} reserved" + (f" (cap {PEAK_MEM_CAP})" if n == large else "")
+        )
+        if n == large:
+            if report["peak_reserved_bytes"][n] > PEAK_MEM_CAP:
+                raise AssertionError(f"n={n}: peak reserved device memory {report['peak_reserved_bytes'][n]} above the cap {PEAK_MEM_CAP}")
+            report["replay_equals_direct"] = replay_equals_direct(backend, settings, blobs, cs)
+            report["staging_alone"] = staging_alone(backend, settings, blobs)
+            report["sweeps"] = width_sweeps(backend, settings, (blobs, cs, ps))
+            report["trace"] = profile_batch(backend, settings, (blobs, cs, ps))
+            report["beside_engine_threads"] = beside_engine_threads(backend, settings, lanes)
     return report
+
+
+def npad_of(n: int) -> int:
+    """The backend's padded batch size: a power of two, at least 4."""
+    return max(4, 1 << (n - 1).bit_length())
+
+
+def batch_launches(npad: int) -> dict:
+    """The launches of one valid batch of padded size ``npad`` under the
+    port's chunk widths, by part; a replay of the barycentric graph counts
+    one (its kernels: ``_build.Graph.kernels``)."""
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+
+    s1 = TB.STAGE1_CHUNK_BLOBS
+    replays = npad // TB.BARY_CHUNK_BLOBS if npad >= 2 * TB.BARY_CHUNK_BLOBS else 0
+    trees = (132 * npad - 1).bit_length() + (264 * npad - 1).bit_length() + 6 + 1
+    parts = {
+        "stage1": 3 * (npad // s1 if npad >= 2 * s1 else 1),
+        "bary": 0 if replays else BARY_LAUNCHES,
+        "graph:bary_chunk": replays,
+        "stage2": 3 + 1 + trees,
+    }
+    return parts | {"total": sum(parts.values())}
+
+
+def timed_batches(backend, settings, args, host: bool = False, reps: int = 3) -> dict:
+    """End to end (host clock) and, on the card, stage times (CUDA events)
+    and host laps of ``reps`` valid batches, each the median."""
+    import torch
+
+    from kzg_rust_tpu_torch import Kzg
+
+    stages, e2e, steps = {}, [], {}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        valid = Kzg.verify_blob_kzg_proof_batch(*args, settings, backend)
+        e2e.append((time.perf_counter() - t) * 1e3)
+        if valid is not True:
+            raise AssertionError(f"n={len(args[0])}: the valid batch did not verify")
+        if not host:
+            for s, v in backend.stage_ms().items():
+                stages.setdefault(s, []).append(v)
+            for s, v in backend.host_ms.items():
+                steps.setdefault(s, []).append(v)
+    med = lambda d: {k: statistics.median(v) for k, v in d.items()}  # noqa: E731
+    return {"e2e_ms": statistics.median(e2e), "e2e_runs_ms": e2e, "stage_ms": med(stages), "host_ms": med(steps)}
+
+
+def chunked_equals_full(backend, settings, lanes, npad: int) -> dict:
+    """Every lane once in the chunked regime and once with both chunk widths
+    patched to ``npad`` (the full-width path): the same outcome, and the
+    same words in the packed fetch (both flags, the blob flag, every y)."""
+    import numpy as np
+
+    from kzg_rust_tpu_torch import Kzg
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+    from kzg_rust_tpu_torch.errors import BadArgs
+
+    widths = (TB.BARY_CHUNK_BLOBS, TB.STAGE1_CHUNK_BLOBS)
+    fetched = []
+    real = backend._fetch
+
+    def recording(*parts):
+        fetched.append(real(*parts))
+        return fetched[-1]
+
+    backend._fetch = recording
+    out = {}
+    try:
+        for lane, (args, _) in lanes.items():
+            got = []
+            for bary, stage1 in (widths, (npad, npad)):
+                TB.BARY_CHUNK_BLOBS, TB.STAGE1_CHUNK_BLOBS = bary, stage1
+                try:
+                    got.append(Kzg.verify_blob_kzg_proof_batch(*args, settings, backend))
+                except BadArgs as e:
+                    got.append(str(e))
+            if got[0] != got[1] or not np.array_equal(fetched[-2], fetched[-1]):
+                raise AssertionError(f"n={len(args[0])} lane {lane}: chunked {got[0]!r} against full width {got[1]!r}, or their fetched words differ")
+            out[lane] = {"outcome": got[0], "words": int(fetched[-1].size)}
+    finally:
+        TB.BARY_CHUNK_BLOBS, TB.STAGE1_CHUNK_BLOBS = widths
+        del backend._fetch
+    log(f"main: n={len(args[0])}: each lane chunked (widths {widths}) and at full width: the same outcome and the same fetched words (flags and {out['valid']['words'] - 3} y words)")
+    return out
+
+
+def replay_equals_direct(backend, settings, blobs, cs) -> dict:
+    """One replay of the barycentric graph on the batch's first chunk
+    against the same chunk launched directly, word for word, and both
+    times (the replay from the graph, the direct call as launched)."""
+    import numpy as np
+    import torch
+
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+    from kzg_rust_tpu_torch.ops import limbs as L
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    width = TB.BARY_CHUNK_BLOBS
+    ctx = backend._fr_ctx(settings)
+    pipe = backend._bary_pipe(settings, ctx, width)
+    chunk = blobs[:width]
+    zs = TB._Challenges(settings.preset, chunk, cs[:width]).get(0, width)
+    blob_in = torch.from_numpy(np.frombuffer(b"".join(bytes(b) for b in chunk), np.uint8).reshape(pipe.blob_in.shape).copy()).cuda()
+    xs_in = torch.from_numpy(L.ints_to_words(L.FR.nwords, zs)).cuda()
+    pipe.blob_in.copy_(blob_in)
+    pipe.xs_in.copy_(xs_in)
+    pipe.graph.replay()
+    ys, ok = (t.clone() for t in pipe.graph.outputs)
+    want_ys, want_ok = V.bary_batch_from_bytes(ctx, blob_in, xs_in)
+    torch.cuda.synchronize()
+    if not (torch.equal(ys, want_ys) and torch.equal(ok, want_ok) and bool(ok)):
+        raise AssertionError("the barycentric graph's replay disagrees with the same chunk launched directly")
+    out = {
+        "width": width,
+        "kernels_in_graph": pipe.graph.kernels,
+        "replay_ms": cuda_ms(pipe.graph.graph.replay, 10),
+        "direct_ms": cuda_ms(lambda: V.bary_batch_from_bytes(ctx, blob_in, xs_in), 10),
+    }
+    log(
+        f"main: one replay of the barycentric graph at {width} blobs equals the same chunk launched directly, word for word; "
+        f"replay {out['replay_ms']:.4f} ms, direct {out['direct_ms']:.4f} ms (CUDA events, median of 10); "
+        f"{sum(out['kernels_in_graph'].values())} kernels a replay: {json.dumps(out['kernels_in_graph'])}"
+    )
+    return out
+
+
+def staging_alone(backend, settings, blobs) -> dict:
+    """The chunked path's host staging with nothing else running: every
+    chunk of ``blobs`` waited for, copied into its pinned staging buffer and
+    its upload enqueued, then one synchronize (host clock; the copies' rate
+    beside the batch's ``stage_chunk_copy`` lap, where the hash pool runs
+    beside them)."""
+    import torch
+
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+
+    width = TB.BARY_CHUNK_BLOBS
+    pipe = backend._bary_pipe(settings, backend._fr_ctx(settings), width)
+    times = []
+    with pipe.lock:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for k, s in enumerate(range(0, len(blobs), width)):
+                pipe.wait(k)
+                pipe.stage(k, blobs[s : s + width])
+            copied = time.perf_counter()
+            torch.cuda.synchronize()
+            times.append(((copied - t) * 1e3, (time.perf_counter() - t) * 1e3))
+    nbytes = sum(len(b) for b in blobs)
+    out = {"copy_ms": statistics.median(c for c, _ in times), "with_uploads_ms": statistics.median(u for _, u in times), "bytes": nbytes}
+    out["copy_gb_per_s"] = nbytes / out["copy_ms"] / 1e6
+    log(
+        f"main: n={len(blobs)}: staging alone (no hashing beside it): {nbytes} bytes copied into the pinned buffers in "
+        f"{out['copy_ms']:.1f} ms ({out['copy_gb_per_s']:.2f} GB/s), {out['with_uploads_ms']:.1f} ms to the last upload's end (host clock, median of 3)"
+    )
+    return out
+
+
+def width_sweeps(backend, settings, args, rounds: int = 3) -> dict:
+    """The two chunk widths at this n: the BARY_SWEEP widths, then the
+    STAGE1_SWEEP widths (the other at the module's value).  Each width
+    runs one warm-up batch, then ``rounds`` rounds each run one batch of
+    every width in turn, so that the host's drift falls on all of them
+    alike; a width's figures are the medians over the rounds.  Chunked
+    stage 1 is held word for word against full width, and each bary
+    width's graph replay is timed alone.  The other widths' chunk
+    pipelines are freed afterwards."""
+    import numpy as np
+    import torch
+
+    from kzg_rust_tpu_torch import Kzg
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    blobs, cs, ps = args
+    npad = npad_of(len(blobs))
+    widths = (TB.BARY_CHUNK_BLOBS, TB.STAGE1_CHUNK_BLOBS)
+    rows = b"".join(bytes(c) + bytes(p) for c, p in zip(cs, ps)) + (b"\xc0" + b"\x00" * 47) * (2 * (npad - len(blobs)))
+    comp = torch.from_numpy(np.frombuffer(rows, np.uint8).reshape(2 * npad, 48).copy()).to(backend.device)
+    full = V.batch_points(comp)
+
+    def set_width(part, w):
+        if part == "bary":
+            TB.BARY_CHUNK_BLOBS = w
+        else:
+            TB.STAGE1_CHUNK_BLOBS = npad if w == "full" else w
+
+    def sweep(part, values):
+        runs = {w: [] for w in values}
+        for w in values:
+            set_width(part, w)
+            if part == "stage1":
+                got = backend._stage1(comp, npad)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, f) for g, f in zip(got, full)):
+                    raise AssertionError(f"stage 1 in chunks of {w} blobs disagrees with full width")
+                del got
+            Kzg.verify_blob_kzg_proof_batch(*args, settings, backend)
+        for _ in range(rounds):
+            for w in values:
+                set_width(part, w)
+                runs[w].append(timed_batches(backend, settings, args, reps=1))
+        set_width(part, widths[part == "stage1"])
+        med = lambda key, rs: {k: statistics.median(r[key][k] for r in rs) for k in rs[0][key]}  # noqa: E731
+        return {
+            w: {"e2e_ms": statistics.median(r["e2e_ms"] for r in rs), "e2e_runs_ms": [r["e2e_ms"] for r in rs], "stage_ms": med("stage_ms", rs), "host_ms": med("host_ms", rs)}
+            for w, rs in runs.items()
+        }
+
+    try:
+        out = {"bary": sweep("bary", BARY_SWEEP), "stage1": sweep("stage1", STAGE1_SWEEP)}
+        if backend.device.type == "cuda":
+            for w, r in out["bary"].items():
+                r["replay_ms"] = cuda_ms(backend._bary_pipe(settings, backend._fr_ctx(settings), w).graph.graph.replay, 10)
+                r["replays_ms"] = r["replay_ms"] * (npad // w)
+    finally:
+        TB.BARY_CHUNK_BLOBS, TB.STAGE1_CHUNK_BLOBS = widths
+        for key in [k for k in settings._device_cache if k[0] == "bary_chunks" and k[2] != widths[0]]:
+            del settings._device_cache[key]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for part, runs in out.items():
+        best = min(runs, key=lambda w: runs[w]["e2e_ms"])
+        keep = ("e2e_ms", "replay_ms", "replays_ms")
+        summary = {str(w): {k: r[k] for k in keep if k in r} | {"stage1_ms": r["stage_ms"]["stage1"], "bary_ms": r["stage_ms"]["bary"]} for w, r in runs.items()}
+        log(
+            f"sweep: n={len(blobs)}: {part} chunk width -> median of {rounds} rounds, the widths in turn (host clock e2e, CUDA-event "
+            f"stages; a bary width's replay alone, median of 10, and times the chunks): {json.dumps(summary)}; best {best}, the module's {widths[part == 'stage1']}"
+        )
+    return out
+
+
+def profile_batch(backend, settings, args) -> dict:
+    """One batch under torch.profiler: the device's operations summed by
+    name (top 12), the share of host-to-device copy time that overlaps a
+    kernel, and the device's busy share of the batch (from the trace's
+    device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kzg_rust_tpu_torch import Kzg
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        Kzg.verify_blob_kzg_proof_batch(*args, settings, backend)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    path = os.path.join(ROOT, "build", f"trace_n{len(args[0])}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        log("trace: torch.profiler recorded no device events; the device's operations are not measured")
+        return {"device_events": 0}
+
+    def merged(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def overlap(span, union):
+        return sum(max(0.0, min(span[1], b) - max(span[0], a)) for a, b in union)
+
+    kernels = merged([(e["ts"], e["ts"] + e["dur"]) for e in events if e["cat"] == "kernel"])
+    h2d = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    h2d_us = sum(b - a for a, b in h2d)
+    by_name = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    busy_us = sum(b - a for a, b in merged([(e["ts"], e["ts"] + e["dur"]) for e in events]))
+    out = {
+        "device_events": len(events),
+        "top_ms": {k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]},
+        "h2d_ms": h2d_us / 1e3,
+        "h2d_copies": len(h2d),
+        "h2d_overlapped_share": sum(overlap(s, kernels) for s in h2d) / h2d_us if h2d_us else None,
+        "device_busy_ms": busy_us / 1e3,
+        "wall_ms": wall_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+    }
+    log(
+        f"trace: n={len(args[0])}: {len(events)} device events; H2D {out['h2d_ms']:.2f} ms in {len(h2d)} copies, "
+        f"{out['h2d_overlapped_share'] if out['h2d_overlapped_share'] is None else round(out['h2d_overlapped_share'], 4)} of it beside a kernel; "
+        f"device busy {out['device_busy_ms']:.2f} of {out['wall_ms']:.1f} ms (host clock, under the profiler); top device ops (ms): {json.dumps(out['top_ms'])}"
+    )
+    return out
 
 
 def golden_pairing_lane(backend, settings, lanes) -> dict:
@@ -1788,35 +2175,63 @@ def main() -> int:
     host = host_placement(backend, settings)
 
     # Phase 4: report.  A kernel's launches on the path: one valid n = 64
-    # batch, one commit and one proof, each counted from 0.
-    small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
+    # batch, one commit and one proof, each counted from 0.  In a larger
+    # batch a kernel's launches are its direct ones plus the barycentric
+    # graph's replays times its launches in one replay.
+    small = BATCH_SIZES[0]
+    graphs = report["graph_kernels"]
+
+    def per_kernel(counts):
+        return {e: counts[e] + sum(counts.get(g, 0) * k.get(e, 0) for g, k in graphs.items()) for e in _build.ENTRY_POINTS}
+
     runs = {f"n{small}": report["launches"][small], "commit": prover["launches"]["commit"], "proof": prover["launches"]["proof"]}
     for row in every:
         entry = row["name"].split()[-1]
         row["launches"] = sum(counts[entry] for counts in runs.values())
         row["launches_by_run"] = {name: counts[entry] for name, counts in runs.items()}
-        row[f"launches_n{large}"] = report["launches"][large][entry]
-    totals = {name: sum(counts.values()) for name, counts in runs.items()} | {f"n{large}": sum(report["launches"][large].values())}
-    if totals != PATH_LAUNCHES:
-        raise AssertionError(f"launches per run {totals}, expected {PATH_LAUNCHES}")
+        for n in BATCH_SIZES[1:]:
+            row[f"launches_n{n}"] = per_kernel(report["launches"][n])[entry]
+    expected = {f"n{n}": batch_launches(npad_of(n))["total"] for n in BATCH_SIZES} | PATH_LAUNCHES
+    totals = {name: sum(counts.values()) for name, counts in runs.items()} | {f"n{n}": sum(report["launches"][n].values()) for n in BATCH_SIZES}
+    if totals != expected:
+        raise AssertionError(f"launches per run {totals}, expected {expected}")
     missing = [e for e in _build.ENTRY_POINTS if e not in OFF_PATH and not any(counts[e] for counts in runs.values())]
     if missing:
         raise AssertionError(f"kernels of the path never launched by the n={small} batch, a commit or a proof: {missing}")
     # Stage 1 is kernel A, the window-base chain and kernel B, one launch
-    # each and nothing else (no Fp compare, K1, K3 or Fp chain); the batch
-    # has no one-step K4 and no Fp chain (the square root is inside A), and
-    # the Fermat inversion and x^4096 are two Fr chains.
-    chain_counts = {"kzg_proj_double_chain": 1, "kzg_proj_double": 0, "kzg_fp_pow_const": 0, "kzg_fr_pow_const": 2}
+    # each a chunk and nothing else (no Fp compare, K1, K3 or Fp chain); the
+    # batch has no one-step K4 and no Fp chain (the square root is inside
+    # A); the Fermat inversion and x^4096 are two Fr chains a barycentric
+    # evaluation, launched directly at full width and one replay a chunk in
+    # the chunked regime, where no barycentric kernel launches directly.
     for n in BATCH_SIZES:
-        if report["stage1_launches"][n] != STAGE1_LAUNCHES:
-            raise AssertionError(f"n={n}: stage 1 launched {report['stage1_launches'][n]}, expected {STAGE1_LAUNCHES}")
-        got = {e: report["launches"][n][e] for e in chain_counts}
-        if got != chain_counts:
-            raise AssertionError(f"n={n}: chain launches {got}, expected {chain_counts}")
-        log(f"launches: n={n}: {sum(report['launches'][n].values())} in one valid batch; stage 1 {json.dumps(report['stage1_launches'][n])}; chains {json.dumps(got)}")
+        parts = batch_launches(npad_of(n))
+        counts = report["launches"][n]
+        chunks = parts["stage1"] // 3
+        if report["stage1_launches"][n] != {e: c * chunks for e, c in STAGE1_LAUNCHES.items()}:
+            raise AssertionError(f"n={n}: stage 1 launched {report['stage1_launches'][n]}, expected {chunks} x {STAGE1_LAUNCHES}")
+        replays = parts["graph:bary_chunk"]
+        got = {e: counts[e] for e in ("kzg_proj_double_chain", "kzg_proj_double", "kzg_fp_pow_const", "kzg_fr_pow_const")}
+        got["graph:bary_chunk"] = counts.get("graph:bary_chunk", 0)
+        want = {"kzg_proj_double_chain": chunks, "kzg_proj_double": 0, "kzg_fp_pow_const": 0, "kzg_fr_pow_const": 0 if replays else 2, "graph:bary_chunk": replays}
+        if got != want:
+            raise AssertionError(f"n={n}: chain launches and replays {got}, expected {want}")
+        log(
+            f"launches: n={n}: {totals[f'n{n}']} in one valid batch ({json.dumps(parts)}; a replay counts one); "
+            f"{sum(per_kernel(counts).values())} kernels in all; stage 1 {json.dumps(report['stage1_launches'][n])}; chains and replays {json.dumps(got)}"
+        )
     for row in rows:
-        log(f"launches: {row['name']}: {row['launches']} on the path ({json.dumps(row['launches_by_run'])}), {row[f'launches_n{large}']} in one n={large} batch")
-    log(json.dumps({"stage_ms": report["stage_ms"], "host_ms": report["host_ms"], "e2e_ms": report["e2e_ms"], "blobs_per_s": report["blobs_per_s"], "peak_mem_bytes": report["peak_mem_bytes"], "card": card}))
+        per_n = ", ".join(f"{row[f'launches_n{n}']} in one n={n} batch" for n in BATCH_SIZES[1:])
+        log(f"launches: {row['name']}: {row['launches']} on the path ({json.dumps(row['launches_by_run'])}), {per_n}")
+    log(
+        json.dumps(
+            {
+                k: report[k]
+                for k in ("stage_ms", "host_ms", "e2e_ms", "blobs_per_s", "peak_mem_bytes", "peak_reserved_bytes", "replay_equals_direct", "staging_alone", "trace")
+            }
+            | {"sweeps": {part: {str(w): r for w, r in runs_.items()} for part, runs_ in report["sweeps"].items()}, "card": card}
+        )
+    )
     log(json.dumps({"prover": prover, "card": card}))
     log(json.dumps({"engine_vs_golden": engine, "card": card}))
     # Host placement on this machine's CPU beside the card's figures.

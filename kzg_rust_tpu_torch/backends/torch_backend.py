@@ -4,10 +4,15 @@ Runs on the card, as launch sequences of the hand-written CUDA kernels:
 
 * ``verify_blob_kzg_proof_batch`` as three device stages
   (:mod:`kzg_rust_tpu_torch.ops.verify_kernels`) followed by one pairing on
-  the host: the device branch of the JAX package's
+  the host: the single-device branches of the JAX package's
   ``jax_backend.JaxBackend._verify_batch_device``.  Batch sizes are padded
   to powers of two (at least 4) with infinity points and zero blobs, which
-  are identities through every stage;
+  are identities through every stage.  Large batches run stage 1 and the
+  barycentric evaluation in blob chunks (``STAGE1_CHUNK_BLOBS``,
+  ``BARY_CHUNK_BLOBS``): each barycentric chunk is copied from the callers'
+  bytes into one of two pinned staging buffers, uploaded on a copy stream
+  while the card evaluates the chunk before it, and evaluated by one replay
+  of a CUDA graph;
 * the prover, ``blob_to_kzg_commitment`` and ``compute_kzg_proof`` (and
   through it ``compute_blob_kzg_proof``), each one device sequence
   (:mod:`kzg_rust_tpu_torch.ops.prover_kernels`) and one fetch: the device
@@ -36,10 +41,9 @@ variables, each ``device`` (the default) or ``host``:
   ``blob_to_kzg_commitment``, ``compute_kzg_proof`` and
   ``compute_blob_kzg_proof`` each as one call of its ``ProverCtx``.
 
-``host`` without the engine raises RuntimeError.  The two variables stand
-in until the JAX package's measured ``auto`` placement (and its
-``host-piecewise`` mode) is ported (ROADMAP Queue 1 item 11), which is to
-replace them; either value raises ValueError for now.
+``host`` without the engine raises RuntimeError.  The JAX package's
+measured ``auto`` placement (and its ``host-piecewise`` mode) is not ported
+yet (ROADMAP Queue 1, measured placement); either value raises ValueError.
 
 On a CUDA device the constructor builds and loads the engine and raises
 where it does not load (unless ``KZG_TORCH_NATIVE=0``).
@@ -51,7 +55,9 @@ plain PyTorch versions (the CPU tests).
 
 from __future__ import annotations
 
+import hashlib
 import os
+import threading
 import time
 
 import numpy as np
@@ -70,6 +76,21 @@ from .golden_backend import GoldenBackend
 
 STAGES = ("stage1", "bary", "stage2", "quotient", "digits", "accumulate")
 
+# Blob-chunked barycentric evaluation, from npad >= 2 * BARY_CHUNK_BLOBS:
+# each chunk's blobs are uploaded while the card evaluates the chunk before
+# it, and the evaluation's working set stays one chunk wide.  64 had the
+# best median end to end of chip_smoke.py's sweep (64-512) at n = 4096 on
+# an NVIDIA H100, all four inside the host's spread (PERF.md section 5).
+BARY_CHUNK_BLOBS = 64
+# Stage 1 in chunks of this many blobs from npad >= 2 * STAGE1_CHUNK_BLOBS;
+# the parts' window bases are joined on the card and their flags
+# AND-combined.  Full width won the H100 sweep at n = 4096 (PERF.md
+# section 5), so the branch starts above 4096, where it bounds stage 1's
+# memory.
+STAGE1_CHUNK_BLOBS = 4096
+# Blobs a task of the hash pool hashes in turn.
+HASH_GROUP = 16
+
 
 def _pow2_pad(n: int, lo: int = 2) -> int:
     m = lo
@@ -79,7 +100,7 @@ def _pow2_pad(n: int, lo: int = 2) -> int:
 
 
 _HASH_POOL = None
-_HASH_POOL_LOCK = __import__("threading").Lock()
+_HASH_POOL_LOCK = threading.Lock()
 
 
 def _hash_pool():
@@ -94,6 +115,133 @@ def _hash_pool():
     return _HASH_POOL
 
 
+def _challenges(prefix: bytes, blobs, commitments) -> list[int]:
+    """The Fiat-Shamir challenge of each (blob, commitment): SHA-256 over
+    ``prefix``, the blob and the commitment, fed in turn (the same digest as
+    ``bls_serde.challenge_preimage`` joined; hashlib drops the GIL on the
+    blob), reduced mod r."""
+    from ..utils import bls_serde as serde
+
+    out = []
+    for blob, c in zip(blobs, commitments):
+        h = hashlib.sha256(prefix)
+        h.update(blob)
+        h.update(bytes(c))
+        out.append(serde.hash_to_bls_field(h.digest()))
+    return out
+
+
+class _Challenges:
+    """A batch's challenges, hashed in the shared pool in groups of
+    HASH_GROUP blobs from construction on (inline below 8 blobs); ``get``
+    waits only for the groups it needs."""
+
+    def __init__(self, preset, blobs, commitments):
+        from ..presets import FIAT_SHAMIR_PROTOCOL_DOMAIN
+        from ..utils import bls_serde as serde
+
+        prefix = FIAT_SHAMIR_PROTOCOL_DOMAIN + serde.bytes_from_uint64(0) + serde.bytes_from_uint64(preset.field_elements_per_blob)
+        n = len(blobs)
+        if n < 8:
+            self._groups = [_challenges(prefix, blobs, commitments)]
+            self._width = max(n, 1)
+            return
+        pool = _hash_pool()
+        self._width = HASH_GROUP
+        self._groups = [
+            pool.submit(_challenges, prefix, blobs[i : i + HASH_GROUP], commitments[i : i + HASH_GROUP])
+            for i in range(0, n, HASH_GROUP)
+        ]
+
+    def get(self, lo: int, hi: int) -> list[int]:
+        """The challenges of blobs lo..hi-1."""
+        if hi <= lo:
+            return []
+        w = self._width
+        out = []
+        for g in range(lo // w, -(-hi // w)):
+            part = self._groups[g]
+            out += part if isinstance(part, list) else part.result()
+        return out[lo - (lo // w) * w :][: hi - lo]
+
+
+class _BaryChunks:
+    """The chunked barycentric evaluation for one (settings, device, chunk
+    width), cached in ``settings._device_cache`` and freed with it.
+
+    Chunk k runs in three steps.  :meth:`wait` waits for the upload that
+    last read staging buffer k % 2.  :meth:`stage` copies the chunk's blobs
+    from the callers' bytes into that buffer (one copy a blob) and, on the
+    card, enqueues that buffer's upload into landing buffer k % 2 on a copy
+    stream of its own.  :meth:`run` copies the landed rows into the static
+    input ``blob_in`` on the current stream (which waits on the upload's
+    event), zeroes the pad rows there, puts the chunk's xs into ``xs_in``
+    and replays one CUDA graph of ``bary_batch_from_bytes(ctx, blob_in,
+    xs_in)``, captured once; it returns the graph's static (ys, ok), which
+    the caller copies out before the next run.  So chunk k + 1's upload runs
+    while the card evaluates chunk k.  The copy stream waits on a landing
+    buffer's last read before it overwrites it.
+
+    On the CPU the staging buffer is ``blob_in`` itself, and ``run`` calls
+    the plain versions: no pinning, no copy stream, no graph.  Pinning,
+    copies and the capture raise where they fail."""
+
+    def __init__(self, ctx, device, width: int, fe: int):
+        from ..ops import _build
+        from ..ops import verify_kernels as V
+        from ..ops.limbs import FR
+
+        self.ctx, self.width = ctx, width
+        self.lock = threading.Lock()
+        self.blob_in = torch.zeros((width, fe, 32), dtype=torch.uint8, device=device)
+        self.xs_in = torch.zeros((width, FR.nwords), dtype=torch.int32, device=device)
+        self.graph = None
+        if device.type == "cpu":
+            self.staging = [self.blob_in]
+            return
+        self.staging = [torch.empty((width, fe, 32), dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+        self.landing = [torch.empty((width, fe, 32), dtype=torch.uint8, device=device) for _ in range(2)]
+        self.copy_stream = torch.cuda.Stream(device)
+        self.uploaded = [torch.cuda.Event() for _ in range(2)]
+        self.consumed = [torch.cuda.Event() for _ in range(2)]
+        self.graph = _build.Graph("graph:bary_chunk", lambda: V.bary_batch_from_bytes(ctx, self.blob_in, self.xs_in), device)
+
+    def wait(self, k: int) -> None:
+        """Host: wait for the upload that last read chunk k's staging buffer."""
+        if self.graph is not None:
+            self.uploaded[k % 2].synchronize()
+
+    def stage(self, k: int, blobs) -> None:
+        slot = k % len(self.staging)
+        buf = self.staging[slot].numpy().reshape(self.width, -1)
+        for j, blob in enumerate(blobs):
+            buf[j] = np.frombuffer(blob, dtype=np.uint8)
+        if self.graph is None or not blobs:
+            return
+        rows = len(blobs)
+        with torch.cuda.stream(self.copy_stream):
+            self.copy_stream.wait_event(self.consumed[slot])
+            self.landing[slot][:rows].copy_(self.staging[slot][:rows], non_blocking=True)
+            self.uploaded[slot].record(self.copy_stream)
+
+    def run(self, k: int, rows: int, xs: torch.Tensor):
+        from ..ops import verify_kernels as V
+
+        if self.graph is not None and rows:
+            slot = k % len(self.staging)
+            cur = torch.cuda.current_stream(self.blob_in.device)
+            cur.wait_event(self.uploaded[slot])
+            self.blob_in[:rows].copy_(self.landing[slot][:rows])
+            self.consumed[slot].record(cur)
+        if rows < self.width:
+            self.blob_in[rows:].zero_()
+        self.xs_in.copy_(xs, non_blocking=True)
+        if self.graph is None:
+            return V.bary_batch_from_bytes(self.ctx, self.blob_in, self.xs_in)
+        self.graph.replay()
+        return self.graph.outputs
+
+
 def placement(var: str) -> str:
     """``device`` or ``host``, as the environment variable ``var``
     (``KZG_TORCH_EVAL`` or ``KZG_TORCH_PROVER``) asks; ``device`` when unset."""
@@ -101,7 +249,7 @@ def placement(var: str) -> str:
     if mode in ("auto", "host-piecewise"):
         raise ValueError(
             f"{var}={mode}: the JAX package's measured placement is not ported yet "
-            "(ROADMAP Queue 1 item 11); use device or host"
+            "(ROADMAP Queue 1, measured placement); use device or host"
         )
     if mode not in ("device", "host"):
         raise ValueError(f"{var}={mode!r}: expected device or host")
@@ -144,9 +292,11 @@ class TorchBackend(GoldenBackend):
             self._events[key] = ev
 
     def _lap(self, step: str) -> None:
+        """Add the host's milliseconds since the last lap to ``step`` (a step
+        a chunk loop repeats sums its laps; all laps add up to the call)."""
         if self.time_stages:
             now = time.perf_counter()
-            self.host_ms[step] = (now - self._t) * 1e3
+            self.host_ms[step] = self.host_ms.get(step, 0.0) + (now - self._t) * 1e3
             self._t = now
 
     def _start_timing(self) -> None:
@@ -277,9 +427,13 @@ class TorchBackend(GoldenBackend):
     def _verify_batch_device(self, settings, blobs, commitments_bytes, proofs_bytes):
         """Stage 1 (decompress, window-base chain, subgroup checks) is
         launched first; the host computes the Fiat-Shamir challenges
-        (SHA-256 over the raw blobs) while the card runs it.  Then the
-        barycentric evaluation, one packed fetch of flags and ys, the RLC
-        scalars on the host, stage 2, and one pairing on the host."""
+        (SHA-256 over the raw blobs, in the hash pool) while the card runs
+        it.  Then the barycentric evaluation: from npad >= 2 *
+        BARY_CHUNK_BLOBS in chunks (:class:`_BaryChunks`), each chunk's
+        upload overlapping the chunk before it, else at full width after
+        one upload of the joined blobs.  Then one packed fetch of flags and
+        ys, the RLC scalars on the host, stage 2, and one pairing on the
+        host."""
         from ..golden import curve as gcurve
         from ..golden.field import R
         from ..ops import curve as C
@@ -295,6 +449,7 @@ class TorchBackend(GoldenBackend):
         preset = settings.preset
         npad = _pow2_pad(n, lo=4)
         pad = npad - n
+        chunked = npad >= 2 * BARY_CHUNK_BLOBS
 
         # Compressed points, blob-major interleave (row 2b = commitment b,
         # row 2b+1 = proof b) per the stage-2 lane layout; padded rows are
@@ -311,45 +466,37 @@ class TorchBackend(GoldenBackend):
         # stream, so one after the stage-1 launches would stall the host
         # until stage 1 ends.  Stage 1 is then enqueued before any host
         # hashing, and the doubling chain runs while the host hashes below.
-        blob_np = self._blob_bytes_np(settings, blobs)
-        blob_dev = torch.zeros((npad,) + blob_np.shape[1:], dtype=torch.uint8, device=dev)
-        blob_dev[:n] = torch.from_numpy(blob_np).to(dev)
-        comp_dev = torch.from_numpy(comp).to(dev)
+        # In the chunked regime the blobs go up chunk by chunk instead.
+        if not chunked:
+            blob_np = self._blob_bytes_np(settings, blobs)
+            blob_dev = torch.zeros((npad,) + blob_np.shape[1:], dtype=torch.uint8, device=dev)
+            blob_dev[:n] = torch.from_numpy(blob_np).to(dev)
+        comp_dev = self._upload(comp)
         self._lap("pack_upload")
         self._mark("stage1.start")
-        bases, bases2, pflags = V.batch_points(comp_dev)
+        bases, bases2, pflags = self._stage1(comp_dev, npad)
         self._mark("stage1.end")
         self._lap("stage1_enqueue")
 
-        # Fiat-Shamir challenges on host (overlapped with stage 1).
-        preimages = [
-            serde.challenge_preimage(preset, bytes(blobs[i]), bytes(commitments_bytes[i]))
-            for i in range(n)
-        ]
-        if n >= 8:
-            zs = list(_hash_pool().map(serde.hash_to_bls_field_sha, preimages))
-        else:
-            zs = [serde.hash_to_bls_field_sha(m) for m in preimages]
-
-        xs_eval, overrides = self._in_domain_overrides(settings, blobs, zs)
+        # Fiat-Shamir challenges on the host (overlapped with stage 1).
+        challenges = _Challenges(preset, blobs, commitments_bytes)
         ctx = self._fr_ctx(settings)
-        xs = torch.from_numpy(L.ints_to_words(FR.nwords, xs_eval + [0] * pad))
-        if dev.type == "cuda":  # pinned, so the copy does not wait for stage 1
-            xs = xs.pin_memory()
-        xs = xs.to(dev, non_blocking=True)
-        self._lap("hash")
-        self._mark("bary.start")
-        ys_dev, blob_ok = V.bary_batch_from_bytes(ctx, blob_dev, xs)
-        self._mark("bary.end")
-        self._lap("bary_enqueue")
+        if chunked:
+            self._lap("hash")
+            ys_dev, blob_ok, overrides = self._bary_chunked(settings, ctx, blobs, challenges, npad)
+        else:
+            xs_eval, overrides = self._in_domain_overrides(settings, blobs, challenges.get(0, n))
+            xs = self._upload(L.ints_to_words(FR.nwords, xs_eval + [0] * pad))
+            self._lap("hash")
+            self._mark("bary.start")
+            ys_dev, blob_ok = V.bary_batch_from_bytes(ctx, blob_dev, xs)
+            self._mark("bary.end")
+            self._lap("bary_enqueue")
 
         # ONE packed fetch for flags + blob_ok + ys; the host-side
         # validation order is unchanged (point decode -> subgroup -> blob
         # canonicality, reference kzg.rs:671-683).
-        packed = torch.cat(
-            [pflags.reshape(-1), blob_ok.to(torch.int32).reshape(-1), ys_dev.reshape(-1)]
-        )
-        arr = packed.cpu().numpy()
+        arr = self._fetch(pflags, blob_ok, ys_dev)
         self._lap("fetch_wait")
         if not arr[0]:
             raise BadArgs(MSG_INVALID_COMPRESSED_G1)
@@ -362,6 +509,7 @@ class TorchBackend(GoldenBackend):
             ys[i] = y
 
         # RLC scalars (host SHA-256) + GLV recoding to int8 digit matrices.
+        zs = challenges.get(0, n)
         r_powers = serde.compute_r_powers(preset, commitments_bytes, zs, ys, proofs_bytes)
         r_times_z = [(r_powers[i] * zs[i]) % R for i in range(n)]
         ry = 0
@@ -372,19 +520,80 @@ class TorchBackend(GoldenBackend):
         self._lap("rlc")
 
         self._mark("stage2.start")
-        out = V.batch_stage2(
-            bases,
-            bases2,
-            torch.from_numpy(digits).to(dev),
-            self._gen_table(),
-            torch.from_numpy(sy_digits).to(dev),
-        )
+        out = V.batch_stage2(bases, bases2, self._upload(digits), self._gen_table(), self._upload(sy_digits))
         self._mark("stage2.end")
         proof_lincomb, rhs_g1 = C.proj_to_points(out.cpu())
         self._lap("stage2")
         ok = self.pairings_verify(proof_lincomb, settings.g2_values[1], rhs_g1, gcurve.G2_GENERATOR)
         self._lap("pairing")
         return ok
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device; on the card through pinned memory
+        (the copy does not wait for the stream's work)."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _stage1(self, comp_dev, npad):
+        """Stage 1 over the compressed rows: at full width, or from npad >=
+        2 * STAGE1_CHUNK_BLOBS in chunks of that many blobs, whose window
+        bases are joined along the point axis and whose flags are
+        AND-combined (the JAX package's chunked branch)."""
+        from ..ops import verify_kernels as V
+
+        width = STAGE1_CHUNK_BLOBS
+        if npad < 2 * width:
+            return V.batch_points(comp_dev)
+        parts = [V.batch_points(comp_dev[2 * s : 2 * (s + width)]) for s in range(0, npad, width)]
+        bases = torch.cat([p[0] for p in parts], dim=1)
+        bases2 = torch.cat([p[1] for p in parts], dim=1)
+        return bases, bases2, torch.stack([p[2] for p in parts]).amin(0)
+
+    def _bary_chunked(self, settings, ctx, blobs, challenges, npad):
+        """The barycentric evaluation in chunks of BARY_CHUNK_BLOBS blobs
+        through :class:`_BaryChunks`: per chunk, wait for its staging
+        buffer and stage its blobs, then its
+        challenges (waiting for their hash tasks) and in-domain overrides,
+        then its run; the ys and each chunk's flag are gathered on the
+        card.  Returns (ys [npad, 8], ok, overrides)."""
+        from ..ops import limbs as L
+        from ..ops.limbs import FR
+
+        width = BARY_CHUNK_BLOBS
+        n = len(blobs)
+        pipe = self._bary_pipe(settings, ctx, width)
+        ys_all = torch.empty((npad, FR.nwords), dtype=torch.int32, device=self.device)
+        ok_all = torch.empty(npad // width, dtype=torch.bool, device=self.device)
+        overrides = {}
+        with pipe.lock:
+            self._mark("bary.start")
+            for k, s in enumerate(range(0, npad, width)):
+                chunk = blobs[s : min(s + width, n)]
+                pipe.wait(k)
+                self._lap("staging_wait")
+                pipe.stage(k, chunk)
+                self._lap("stage_chunk_copy")
+                xs_eval, over = self._in_domain_overrides(settings, chunk, challenges.get(s, s + len(chunk)))
+                overrides.update((s + i, y) for i, y in over.items())
+                xs = torch.from_numpy(L.ints_to_words(FR.nwords, xs_eval + [0] * (width - len(chunk))))
+                if self.device.type == "cuda":
+                    xs = xs.pin_memory()
+                self._lap("hash")
+                ys, ok = pipe.run(k, len(chunk), xs)
+                ys_all[s : s + width].copy_(ys)
+                ok_all[k] = ok
+                self._lap("bary_enqueue")
+            self._mark("bary.end")
+        return ys_all, ok_all.all(), overrides
+
+    def _bary_pipe(self, settings, ctx, width: int) -> _BaryChunks:
+        cache = settings._device_cache
+        key = ("bary_chunks", str(self.device), width)
+        if key not in cache:
+            cache[key] = _BaryChunks(ctx, self.device, width, settings.preset.field_elements_per_blob)
+        return cache[key]
 
     def _blob_bytes_np(self, settings, blobs):
         """Blob bytes -> host uint8 [n_blobs, fe, 32] (BE field elements).

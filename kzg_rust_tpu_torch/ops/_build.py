@@ -9,11 +9,15 @@ parallel.  ``KZG_TORCH_BUILD_DIR`` overrides the directory.
 
 :func:`launch` is the one place a kernel is launched: it checks the
 return code of the C entry point (``cudaGetLastError()`` after the launch)
-and adds one to :data:`LAUNCHES` for that entry point.
+and adds one to :data:`LAUNCHES` for that entry point.  Under CUDA-graph
+capture (inside :func:`capturing`) nothing launches, so it adds to
+:data:`CAPTURED` instead; a :class:`Graph` knows from that what one replay
+runs, and each replay adds one to ``LAUNCHES`` under the graph's name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -66,8 +70,10 @@ ENTRY_POINTS = {
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,
-# incremented only in launch().
+# incremented only in launch(); and per Graph name, its replays (one each).
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+# Per entry point, the launches recorded into CUDA graphs (never reset).
+CAPTURED: dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 
 # Per source: seconds its nvcc took and what ptxas reported (registers,
 # spills), filled by build().
@@ -75,6 +81,7 @@ BUILD_INFO: dict[str, dict] = {}
 
 _LOCK = threading.Lock()
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
+_CAPTURE = threading.local()
 
 
 def reset_launches() -> None:
@@ -168,4 +175,50 @@ def launch(name: str, device, *args) -> None:
     rc = _func(name)(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    (CAPTURED if getattr(_CAPTURE, "on", False) else LAUNCHES)[name] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """Mark this thread's launches as recorded into a CUDA graph (counted in
+    CAPTURED, not LAUNCHES) for the block: wrap every capture in it."""
+    _CAPTURE.on = True
+    try:
+        yield
+    finally:
+        _CAPTURE.on = False
+
+
+class Graph:
+    """A launch sequence captured once as a CUDA graph, then replayed.
+
+    ``fn()`` runs once on a side stream first, so that the libraries are
+    loaded and the cached constants it uploads exist before the capture
+    (a capture may not copy from pageable memory); then ``torch.cuda.graph``
+    captures it.  ``outputs`` is what the capture returned: tensors in the
+    graph's private memory pool that every replay rewrites, alive as long
+    as this object.  ``kernels`` is what one replay launches, by entry
+    point.  Each :meth:`replay` adds one to ``LAUNCHES[name]``.  A capture
+    that fails raises."""
+
+    def __init__(self, name: str, fn, device):
+        import torch
+
+        with torch.cuda.device(device):
+            cur = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn()
+            cur.wait_stream(side)
+            before = dict(CAPTURED)
+            self.graph = torch.cuda.CUDAGraph()
+            with capturing(), torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.outputs = fn()
+        self.name = name
+        self.kernels = {e: c - before[e] for e, c in CAPTURED.items() if c != before[e]}
+        LAUNCHES.setdefault(name, 0)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        LAUNCHES[self.name] += 1

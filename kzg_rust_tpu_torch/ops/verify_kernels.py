@@ -260,18 +260,21 @@ def stage2_digits(n: int, r_powers, r_times_z) -> np.ndarray:
     return np.ascontiguousarray(rec[:, idx])
 
 
-def _select_digit_multiple(bases, bases2, digits):
-    """Pick ``d * 4^j * P`` from {B, 2B} for signed digits in {-2..2}:
-    magnitude 2 -> 2B, 1 -> B, 0 -> infinity (X=Z=0), sign -> negated Y.
-    ``digits`` broadcasts against the leading axes of ``bases``."""
-    mag = digits.abs()
-    sel = torch.where((mag == 2)[..., None, None], bases2, bases)
-    x, y, z = sel.unbind(-2)
-    zero = (mag == 0)[..., None]
-    x = torch.where(zero, 0, x)
-    z = torch.where(zero, 0, z)
-    y = torch.where((digits < 0)[..., None], L.neg_mod(FP, y), y)
-    return torch.stack([x, y, z], dim=-2)
+def _select_digit_multiple(table, choice, digits):
+    """Pick ``d * 4^j * P`` for signed digits d in {-2..2}: ``table``
+    [W, n, k, 3, 12] holds each blob's candidate multiples, ``choice``
+    [W, n, L] the entry each lane takes for |d| (its B or its 2B); |d| = 0
+    -> infinity (X=Z=0), d < 0 -> negated Y.  One gather makes the
+    [W, n, L, 3, 12] result; the zeroing and the negation then write into
+    it, so no lane-wide copy of the tables is made."""
+    idx = choice[..., None, None].expand(tuple(choice.shape) + tuple(table.shape[-2:]))
+    sel = torch.gather(table, 2, idx)
+    zero = (digits == 0)[..., None]
+    sel[..., 0, :].masked_fill_(zero, 0)
+    sel[..., 2, :].masked_fill_(zero, 0)
+    y = sel[..., 1, :]
+    y.copy_(torch.where((digits < 0)[..., None], L.neg_mod(FP, y), y))
+    return sel
 
 
 def stage2_partials(bases, bases2, digits):
@@ -281,14 +284,14 @@ def stage2_partials(bases, bases2, digits):
     sum (r^i z_i) proof_i (the generator part not yet subtracted)."""
     n = digits.shape[1] // 6
     w = bases.shape[0]
-
-    def lanes(src):  # [W, 2n, 3, l] -> [W, n, 6, 3, l]
-        c = src[:, 0::2]
-        p = src[:, 1::2]
-        return torch.stack([p, p, c, c, p, p], dim=2)
-
     d = digits.to(torch.int32).reshape(w, n, 6)
-    sel = _select_digit_multiple(lanes(bases), lanes(bases2), d)
+    # Each blob's four candidates, C, 2C, P, 2P (row 2b of the bases is
+    # commitment b, row 2b + 1 proof b); its six lanes take P, P, C, C, P,
+    # P (entries 2, 2, 0, 0, 2, 2), plus one where |d| = 2.
+    table = torch.stack([bases[:, 0::2], bases2[:, 0::2], bases[:, 1::2], bases2[:, 1::2]], dim=2)
+    lane_src = 2 * (torch.arange(6, device=d.device) // 2 != 1)
+    sel = _select_digit_multiple(table, lane_src + (d.abs() == 2), d)
+    del table
     # The GLV halves multiply phi(P) = (beta X, Y, Z); phi commutes with
     # doubling and negation, so twisting the selected multiple is exact.
     # Only the odd lanes (the k2 halves) pay the beta product.

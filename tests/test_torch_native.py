@@ -474,7 +474,7 @@ def test_placement_refuses_unported_modes(var, mode, monkeypatch, minimal_batch)
         "KZG_TORCH_EVAL": lambda: backend.verify_blob_batch_pipeline(settings, blobs, comms, proofs),
         "KZG_TORCH_PROVER": lambda: backend.compute_blob_proof_pipeline(settings, blobs[0], comms[0]),
     }[var]
-    with pytest.raises(ValueError, match="item 11" if mode != "tpu" else "device or host"):
+    with pytest.raises(ValueError, match="measured placement" if mode != "tpu" else "device or host"):
         call()
 
 
