@@ -7,8 +7,9 @@ Phases, any failure of which exits non-zero without the final line:
 
 1. build the CUDA kernels from kzg_rust_tpu_torch/csrc/ (nvcc, sm_90a) and
    print the build seconds, what ptxas reported, the SASS instructions of
-   the Fp and Fr Montgomery product and squaring (where the toolkit has
-   cuobjdump), and the card's name and power limit;
+   the Fp and Fr Montgomery product and squaring and of one lane of kernel
+   A's product over 2 and 4 lanes (where the toolkit has cuobjdump), and
+   the card's name and power limit;
 1b. build and load the native C++ host engine (native/kzg_native.cpp, g++
    -march=native for this machine's CPU) and print its path, ABI version,
    build seconds and the CPU count; a failed build fails the run;
@@ -20,8 +21,14 @@ Phases, any failure of which exits non-zero without the final line:
    same chains as launch sequences of K1 or K2, which are timed too;
    stage 1's kernels A (decompression) and B (the subgroup check), the K5
    rows, at 2 x 4096 and 2 x 64 points on valid, off-subgroup and
-   adversarial rows, and stage 1 whole (A, the K4 chain, B) against its
-   plain version with its flags, each replayed from a CUDA graph; the
+   adversarial rows, A also in each of its variants (1, 2 or 4 lanes a
+   point) with ptxas's registers and spills, and stage 1 whole (A, the K4
+   chain, B) against its plain version with its flags, each replayed from
+   a CUDA graph; the domain sum (one launch) at a chunk's [4096, 64], a
+   proof's [4096, 1] and [4096, 4096], and twice replayed from a CUDA
+   graph on new terms with its own tickets, a direct sum of more tiles
+   between the replays (the tickets reset, and no other sum reaches the
+   graph's); the
    prover's M1 (GLV digits) and M2 (the MSM after the digits, one launch)
    at mainnet width, edge scalars and an infinity column included, M2 also
    on a table of repeated and negated points (P == Q, P == -Q, infinity)
@@ -67,9 +74,10 @@ Phases, any failure of which exits non-zero without the final line:
    commit or one proof, that at every n a valid batch made the launches
    ``batch_launches`` counts, stage 1 being exactly kernel A, the
    window-base chain and kernel B a chunk (nothing else) and the
-   barycentric evaluation its 49 launches at full width (the Fermat
-   inversion and x^4096 one each of the Fr chain) or one graph replay a
-   chunk, and print the report lines and the ``kernels`` JSON line.
+   barycentric evaluation its 48 launches at full width (the Fermat
+   inversion and x^4096 one each of the Fr chain, the domain sum one) or
+   one graph replay a chunk (48 kernels), and print the report lines and
+   the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
@@ -124,7 +132,8 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp",
 # and x^4096 chains over the blobs of one barycentric chunk
 # (BARY_CHUNK_BLOBS, at n = 4096) and of the padded batch (64, and 4096 at
 # full width as before the chunked regime); the domain sum at
-# n = 64 (4096 rows of 64 blobs); K3 at the subgroup check's former first
+# n = 64 and a chunk (4096 rows of 64 blobs) and in a proof (4096 rows of
+# one); K3 at the subgroup check's former first
 # tree level (8 of its 17 window rows x 8192 points) and at stage 2's
 # widest, the right-hand tree's first level (66 windows x 4096 blobs x 4
 # lanes, halved); K4 and its chain at the window-base chain's widths
@@ -135,8 +144,7 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp",
 # launchers at the widest shapes it gives them at n = 4096: the barycentric
 # differences (kzg_fr_sub, 4096 x 4096 from two broadcast [4096] operands),
 # the blobs' canonicality (kzg_fr_cmp over 4096 x 4096 elements), the
-# domain sum (kzg_fr_sum_rows, [4096, 4096] rows in chunks of 64 to
-# [64, 4096], then to [4096]: two launches), and the Fp negation of stage
+# domain sum (kzg_fr_sum_rows, [4096, 4096] in one launch), and the Fp negation of stage
 # 2's selected Y words (kzg_fp_sub, zero minus 66 windows x 4096 blobs x 6
 # lanes), stage 2 being the only stage that launches it; the barycentric
 # launchers and K2 also at the shapes one chunk gives them (4096 domain
@@ -147,7 +155,7 @@ SHAPES = {
     "fr_wide": 4096 * 4096,
     "fp_pow": (8192, 128),
     "fr_pow": (64, 4096),  # and BARY_CHUNK_BLOBS, first
-    "sum": (4096, 64),
+    "sum": ((4096, 64), (4096, 1)),
     "add": (65536, 540672),
     "double": (8192, 128),
     "msm": 4096,
@@ -158,13 +166,13 @@ SHAPES = {
 }
 # Launches in one commit and one proof with z out of the domain (the MSM in
 # each is M1 and M2, one launch each); those of one valid batch are
-# batch_launches(npad): stage 1, the barycentric evaluation (49 launches at
+# batch_launches(npad): stage 1, the barycentric evaluation (48 launches at
 # full width, one replay of its graph a chunk in the chunked regime) and
 # stage 2 (3 Fp negations, one beta product, and the K3 trees: over the
 # 132 npad left-hand and 264 npad right-hand lanes, the generator's 64
 # windows, and the final add).
-PATH_LAUNCHES = {"commit": 3, "proof": 54}
-BARY_LAUNCHES = 49
+PATH_LAUNCHES = {"commit": 3, "proof": 53}
+BARY_LAUNCHES = 48
 # Stage 1 on the card: kernel A, the window-base chain, kernel B.
 STAGE1_LAUNCHES = {"kzg_g1_decompress": 1, "kzg_proj_double_chain": 1, "kzg_g1_subgroup_check": 1}
 # M2's sweep on the card: (accumulators an SM, threads a block), each
@@ -195,7 +203,8 @@ SUBGROUP_PRODUCTS = 16 * ADD_PRODUCTS + 5
 
 # Probe kernels that differ only in what they do between loading two
 # elements and storing one: nothing (an xor), a product, or a squaring of
-# one operand xored with the other, for each field.
+# one operand xored with the other, for each field; and kernel A's Fp
+# product over 2 and 4 lanes (one lane's instructions).
 SASS_PROBE = r"""
 #include "field.cuh"
 using namespace kzg;
@@ -214,6 +223,11 @@ PROBE(probe_fp_mont_sqr, 12, fp_mont_sqr(z, x); XOR(12))
 PROBE(probe_fr_load_store, 8, for (int j = 0; j < 8; j++) z[j] = x[j] ^ y[j])
 PROBE(probe_fr_mont_mul, 8, fr_mont_mul(z, x, y))
 PROBE(probe_fr_mont_sqr, 8, fr_mont_sqr(z, x); XOR(8))
+#define LANE_PROBE(L) \
+  { uint32_t part[12 / L]; lane_mul<L>(part, x, y, y + 12 - 12 / L, threadIdx.x % L); \
+    for (int j = 0; j < 12; j++) z[j] = j < 12 / L ? part[j] : 0u; }
+PROBE(probe_fp_lane_mul_2, 12, LANE_PROBE(2))
+PROBE(probe_fp_lane_mul_4, 12, LANE_PROBE(4))
 """
 
 
@@ -244,6 +258,28 @@ def sass_counts() -> dict | None:
         last_exit = max(i for i, op in enumerate(ops) if "EXIT" in op)
         counts[name] = last_exit + 1
     return counts
+
+
+def ptxas_report() -> dict:
+    """What ptxas said of each kernel the build compiled, by kernel and
+    template arguments (e.g. "decompress_kernel 128 4"): (source, its
+    registers line, its spill line)."""
+    from kzg_rust_tpu_torch.ops import _build
+
+    out = {}
+    for src, info in _build.BUILD_INFO.items():
+        kernel = spills = None
+        for line in info["ptxas"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:  # e.g. ..17decompress_kernelILi128ELi4EEEv..: decompress_kernel 128 4
+                name = list(re.finditer(r"\d+([a-z_]+_kernel)((?:I|N3kzg2F[pr]E|Li\d+E)*)", m.group(1)))[-1]
+                args = re.findall(r"N3kzg2(F[pr])E|Li(\d+)E", name.group(2))
+                kernel = " ".join([name.group(1)] + ["".join(a) for a in args])
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "registers" in line and kernel:
+                out[kernel] = (src, line.split(":")[-1].strip(), spills)
+    return out
 
 
 def log(*a):
@@ -409,6 +445,7 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
 
     from kzg_rust_tpu_torch.backends import torch_backend as TB
     from kzg_rust_tpu_torch.golden.field import P, R
+    from kzg_rust_tpu_torch.ops import _build
     from kzg_rust_tpu_torch.ops import curve as C
     from kzg_rust_tpu_torch.ops import limbs as L
     from kzg_rust_tpu_torch.ops import verify_kernels as V
@@ -567,19 +604,58 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         )
     )
     del a, b
-    k, inner = SHAPES["sum"]
-    terms = L.to_device(L.FR, random_field(rng, R, k * inner), device).reshape(k, inner, 8)
-    record(
-        "kzg_fr_sum_rows",
-        lambda x: L.sum_mod(L.FR, x),
-        lambda x: L.sum_mod_plain(L.FR, x),
-        (terms,),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
-        terms.numel() * 4 + inner * 8 * 4,
-        k * inner * 3 * 8,
-        50,
-    )
+    # The domain sum at a barycentric chunk's (and n = 64's) [4096, 64] and a
+    # proof's [4096, 1], one launch each, every term r - 1 in the first
+    # column (the largest lazy sum); then captured in a CUDA graph with
+    # tickets of its own and replayed twice, the terms changed before each
+    # replay and the output zeroed, so that a replay that left the last
+    # block's ticket set would write nothing and fail; between the replays
+    # a direct sum over more tiles than the graph's (16,384 columns) runs
+    # on tickets of its own, which must leave the graph's alone.
+    sums = []
+    for k, inner in SHAPES["sum"]:
+        terms = L.to_device(L.FR, random_field(rng, R, k * inner), device).reshape(k, inner, 8)
+        terms[:, 0] = L.FR.const(R - 1, device)
+        sums.append(
+            record(
+                "kzg_fr_sum_rows",
+                lambda x, t=L.sum_tickets(inner, device): L.sum_mod(L.FR, x, t),
+                lambda x: L.sum_mod_plain(L.FR, x),
+                (terms,),
+                fsrc,
+                "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
+                terms.numel() * 4 + inner * 8 * 4,
+                k * inner * 8,
+                50,
+            )
+        )
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            L.sum_mod(L.FR, terms)
+        torch.cuda.current_stream().wait_stream(side)
+        tickets = L.sum_tickets(inner, device)
+        with _build.capturing(), torch.cuda.graph(graph):
+            out = L.sum_mod(L.FR, terms, tickets)
+        for replay in range(2):
+            terms.copy_(L.to_device(L.FR, random_field(rng, R, k * inner), device).reshape(k, inner, 8))
+            out.zero_()
+            graph.replay()
+            if not torch.equal(out, L.sum_mod_plain(L.FR, terms)):
+                raise AssertionError(f"kzg_fr_sum_rows at [{k}, {inner}]: replay {replay + 1} of its CUDA graph disagrees with the plain sum")
+            if not torch.equal(tickets, torch.zeros_like(tickets)):
+                raise AssertionError(f"kzg_fr_sum_rows at [{k}, {inner}]: replay {replay + 1} left its tickets set")
+            if replay == 0:
+                wide = L.to_device(L.FR, random_field(rng, R, 2 * 16384), device).reshape(2, 16384, 8)
+                if not torch.equal(L.sum_mod(L.FR, wide), L.sum_mod_plain(L.FR, wide)):
+                    raise AssertionError("kzg_fr_sum_rows at [2, 16384] between two graph replays disagrees with the plain sum")
+        if not torch.equal(L.sum_mod(L.FR, terms), L.sum_mod_plain(L.FR, terms)):
+            raise AssertionError(f"kzg_fr_sum_rows at [{k}, {inner}]: a direct launch after the replays disagrees")
+        config = L.sum_config(k, inner, sms)
+        sums[-1].update(config={"threads": config[0], "pairs": config[1], "row_blocks": config[2]}, graph_replays_equal=2)
+        log(f"kernel kzg_fr_sum_rows at [{k}, {inner}]: one launch of {json.dumps(sums[-1]['config'])}; two graph replays on new terms equal the plain sum")
+        del graph, out
 
     # The constant-exponent chains of the path, each one launch, at the
     # widths the path gives them: the square root at n = 4096 and 64 (2 npad
@@ -745,10 +821,10 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     s1src = "kzg_rust_tpu_torch/csrc/stage1_kernels.cu"
     vk = "kzg_rust_tpu/ops/verify_kernels.py"
     adversarial, distinct, golden = stage1_rows(random.Random(SEED))
-    sqrt_digits = L.pow_digits((P + 1) // 4)
-    sqrt_squarings = 4 * (len(sqrt_digits) - 1)
-    sqrt_products = max(sqrt_digits) - 1 + sum(1 for d in sqrt_digits[1:] if d)
+    sqrt_squarings = sum(sq for sq, _ in V.SQRT_CHAIN.steps)
+    sqrt_products = V.SQRT_CHAIN.products - sqrt_squarings
     decompress_ops = (sqrt_squarings + 2) * mont_squarings(12) + (sqrt_products + 3) * mont_products(12)
+    ptxas = ptxas_report()
 
     def compressed(rows_):
         return torch.from_numpy(np.frombuffer(b"".join(rows_), np.uint8).reshape(len(rows_), 48).copy()).to(device)
@@ -774,6 +850,26 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
             plain_reps=1,
             timed=V.g1_uncompress_points,
         )
+        # A's variants, its lanes a point (1 is the one-thread design), each
+        # held word for word against the plain version on every row, timed
+        # replayed (20 calls in a graph), with ptxas's registers and spills
+        # of its kernel.
+        want = packed(*V.g1_uncompress_points_plain(comp))
+        variants = []
+        steps = V.SQRT_CHAIN.products
+        for lanes in V.DECOMPRESS_LANES:
+            call = lambda c, n_=lanes: V.g1_uncompress_points(c, lanes=n_)  # noqa: E731
+            got = packed(*call(comp))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 A at [{ns}], {lanes} lanes: disagrees with its plain version")
+            ms = graph_ms(lambda c=comp, f=call: f(c), 20)
+            block = next(t for t in (128, 64, 32) if -(-ns * lanes // t) >= sms or t == 32)
+            _, regs, spills = ptxas.get(f"decompress_kernel {block} {lanes}", (None, "not reported", "not reported"))
+            variants.append({"lanes": lanes, "products": steps, "ms": ms, "ns_per_dependent_product": ms * 1e6 / steps, "block": block, "ptxas": regs, "spills": spills})
+        a["variants"] = variants
+        a["lanes"], a["chain_products"] = V.decompress_lanes(ns, sms), steps
+        log(f"kernel K5 A at [{ns}]: every variant equal to the plain version; lanes -> ms: " + "; ".join(f"{v['lanes']} {v['ms']:.4f} ({v['ptxas']}; {v['spills']})" for v in variants))
         points, ok = V.g1_uncompress_points(comp)
         bases, bases2 = V.bases_chain(points)
         b = record(
@@ -991,9 +1087,8 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     # The verify path's small launchers at n = 4096: the barycentric
     # differences x - w_i of every blob and root (two broadcast operands, a
     # 537 MB result), the blobs' canonicality over every element, and the
-    # domain sum's two launches (4096 rows of 4096 terms in chunks of 64,
-    # then the 64 partial rows; any order of a modular sum gives the same
-    # words).
+    # domain sum over 4096 rows of 4096 terms in one launch (any order of a
+    # modular sum gives the same words).
     nb = SHAPES["fr_path"]
     xs = L.to_device(L.FR, random_field(rng, R, nb), device)
     roots = L.to_device(L.FR, random_field(rng, R, nb), device)
@@ -1028,13 +1123,13 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
     record(
         "kzg_fr_sum_rows",
-        lambda x: L.sum_mod(L.FR, x),
+        lambda x, t=L.sum_tickets(rows3.shape[1], device): L.sum_mod(L.FR, x, t),
         lambda x: L.sum_mod_plain(L.FR, x),
         (rows3,),
         fsrc,
         "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
-        nb * nb * 32 + 2 * (nb // 64) * nb * 32 + nb * 32,
-        nb * nb * 3 * 8,
+        nb * nb * 32 + nb * 32,
+        nb * nb * 8,
         20,
         plain_reps=1,
     )
@@ -1072,13 +1167,13 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
     record(
         "kzg_fr_sum_rows",
-        lambda x: L.sum_mod(L.FR, x),
+        lambda x, t=L.sum_tickets(rows3.shape[1], device): L.sum_mod(L.FR, x, t),
         lambda x: L.sum_mod_plain(L.FR, x),
         (rows3,),
         fsrc,
         "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
-        nb * chunk * 32 + 2 * (nb // 64) * chunk * 32 + chunk * 32,
-        nb * chunk * 3 * 8,
+        nb * chunk * 32 + chunk * 32,
+        nb * chunk * 8,
         50,
         plain_reps=1,
     )
@@ -1128,6 +1223,8 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
     dbl_rows[0]["at_narrow"] = dbl_rows[1]
     for key in ("a", "b"):
         k5[key][0]["at_narrow"] = k5[key][1]
+    sums[0]["at_proof"] = sums[1]
+    sums[0]["kernels_line"] = True  # redesigned with the K5 A kernel: listed beside the K and M rows
     rows += [k1, k2, add_rows[1], dbl_rows[0], k5["a"][0], k5["b"][0], m1, m2]
     return rows, every
 
@@ -2118,16 +2215,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.BUILD_INFO)} sources in parallel")
-    for src, info in _build.BUILD_INFO.items():
-        kernel = spills = None
-        for line in info["ptxas"].splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:  # e.g. ..13binary_kernelIN3kzg2FpELi0EEEv..: binary_kernel Fp 0
-                kernel = " ".join(filter(None, re.findall(r"\d+([a-z_]+_kernel)I?(?:N3kzg2(F[pr])E)?(?:Li(\d+)E)?", m.group(1))[-1]))
-            elif "spill stores" in line:
-                spills = line.strip()
-            elif "registers" in line and kernel:
-                log(f"build: {src} {kernel}: {line.split(':')[-1].strip()}; {spills}")
+    for label, (src, regs, spills) in ptxas_report().items():
+        log(f"build: {src} {label}: {regs}; {spills}")
     sass = sass_counts()
     if sass is None:
         log("sass: no cuobjdump in the CUDA toolkit; instructions per product and squaring not counted")
@@ -2136,7 +2225,7 @@ def main() -> int:
             f"{f}_mont_{op}": sass[f"probe_{f}_mont_{op}"] - sass[f"probe_{f}_load_store"]
             for f in ("fp", "fr")
             for op in ("mul", "sqr")
-        }
+        } | {f"fp_lane_mul_{n}": sass[f"probe_fp_lane_mul_{n}"] - sass["probe_fp_load_store"] for n in (2, 4)}
         log(
             f"sass: instructions per call on sm_90a, less the load/store probe of the field: {json.dumps(per_call)} "
             f"(probe kernels {json.dumps(sass)})"
@@ -2204,6 +2293,9 @@ def main() -> int:
     # A); the Fermat inversion and x^4096 are two Fr chains a barycentric
     # evaluation, launched directly at full width and one replay a chunk in
     # the chunked regime, where no barycentric kernel launches directly.
+    for name, kernels in graphs.items():
+        if sum(kernels.values()) != BARY_LAUNCHES or kernels.get("kzg_fr_sum_rows") != 1:
+            raise AssertionError(f"graph {name}: a replay runs {json.dumps(kernels)}, expected {BARY_LAUNCHES} kernels, one domain sum")
     for n in BATCH_SIZES:
         parts = batch_launches(npad_of(n))
         counts = report["launches"][n]
@@ -2253,7 +2345,7 @@ def main() -> int:
     # The kernels line lists the ports of the repo's TPU kernels, K1-K4, and
     # the prover's MSM kernels, M1 and M2; the launchers that share their
     # device functions are checked and logged above.
-    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith(("K", "M"))]}))
+    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith(("K", "M")) or r.get("kernels_line")]}))
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

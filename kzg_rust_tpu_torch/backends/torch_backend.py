@@ -177,7 +177,8 @@ class _BaryChunks:
     input ``blob_in`` on the current stream (which waits on the upload's
     event), zeroes the pad rows there, puts the chunk's xs into ``xs_in``
     and replays one CUDA graph of ``bary_batch_from_bytes(ctx, blob_in,
-    xs_in)``, captured once; it returns the graph's static (ys, ok), which
+    xs_in, tickets)``, captured once (``tickets``, its domain sum's, are
+    this object's alone); it returns the graph's static (ys, ok), which
     the caller copies out before the next run.  So chunk k + 1's upload runs
     while the card evaluates chunk k.  The copy stream waits on a landing
     buffer's last read before it overwrites it.
@@ -188,6 +189,7 @@ class _BaryChunks:
 
     def __init__(self, ctx, device, width: int, fe: int):
         from ..ops import _build
+        from ..ops import limbs as L
         from ..ops import verify_kernels as V
         from ..ops.limbs import FR
 
@@ -204,7 +206,10 @@ class _BaryChunks:
         self.copy_stream = torch.cuda.Stream(device)
         self.uploaded = [torch.cuda.Event() for _ in range(2)]
         self.consumed = [torch.cuda.Event() for _ in range(2)]
-        self.graph = _build.Graph("graph:bary_chunk", lambda: V.bary_batch_from_bytes(ctx, self.blob_in, self.xs_in), device)
+        self.tickets = L.sum_tickets(width, device)  # the graph's domain sum's, its own
+        self.graph = _build.Graph(
+            "graph:bary_chunk", lambda: V.bary_batch_from_bytes(ctx, self.blob_in, self.xs_in, self.tickets), device
+        )
 
     def wait(self, k: int) -> None:
         """Host: wait for the upload that last read chunk k's staging buffer."""

@@ -8,7 +8,8 @@
 // same radix as the JAX package's 32 x 12-bit limbs, so Fp Montgomery values
 // are the same integers in both packages) and R = 2^256 for Fr (the JAX
 // package uses 2^264: its Fr Montgomery values differ by 2^8).  Every
-// function takes and returns canonical values (< modulus).
+// function takes and returns canonical values (< modulus), but the lane
+// product lane_mul (values below 2p, for kernel A's chain).
 
 #pragma once
 
@@ -451,8 +452,8 @@ __device__ __forceinline__ void fr_mont_sqr(uint32_t* r, const uint32_t* a) { so
 
 // ---------------------------------------------------------------------------
 // Constant-exponent chains (K1's kzg_fp_pow_const and K2's kzg_fr_pow_const
-// in field_kernels.cu, the square root of kzg_g1_decompress in
-// stage1_kernels.cu).
+// in field_kernels.cu; the table helpers also serve the square root of
+// kzg_g1_decompress in stage1_kernels.cu, whose chain is its own).
 // ---------------------------------------------------------------------------
 
 constexpr int kPowMaxDigits = 96;  // 4-bit digits of an exponent below 2^384
@@ -513,6 +514,102 @@ __device__ __forceinline__ void pow_const(uint32_t* acc, const uint32_t* a, uint
       cios_mul<F>(acc, acc, x);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The Fp Montgomery product spread over L = 2 or 4 lanes of a warp (the
+// square-root chain of stage1_kernels.cu kzg_g1_decompress).  A group is L
+// neighbouring lanes, aligned on L; lane r of it holds W = 12 / L words of
+// an element, words W r .. W r + W - 1 (its "part").  Every lane of the warp
+// must take part: the shuffles name the whole warp.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// All 12 words of an element whose parts lie over the group, in every lane:
+// 12 independent shuffles.
+template <int L>
+__device__ __forceinline__ void lane_gather(uint32_t* v, const uint32_t* part) {
+  constexpr int W = Fp::N / L;
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) v[j] = __shfl_sync(kFullWarp, part[j % W], j / W, L);
+}
+
+// Lane r's part of a whole element (selects, so that v stays in registers).
+template <int L>
+__device__ __forceinline__ void lane_part(uint32_t* part, const uint32_t* v, int r) {
+  constexpr int W = Fp::N / L;
+#pragma unroll
+  for (int j = 0; j < W; j++) {
+    uint32_t w = v[j];
+#pragma unroll
+    for (int s = 1; s < L; s++) w = r == s ? v[W * s + j] : w;
+    part[j] = w;
+  }
+}
+
+// t[0..W-1] += c with the carry chain; returns the carry out of t[W-1].
+template <int W>
+__device__ __forceinline__ uint32_t add_word(uint32_t* t, uint32_t c) {
+#pragma unroll
+  for (int j = 0; j < W; j++) {
+    const uint64_t s = (uint64_t)t[j] + c;
+    t[j] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+  }
+  return c;
+}
+
+// Lane r's part of a * b * 2^-384 mod p, in [0, 2p) for a, b < 2p (4p <
+// 2^384 keeps CIOS's bound): a_part and m_part are this lane's parts of a
+// and of p, b is whole in every lane.  CIOS over the words of b with the
+// window t spread over the group: each lane runs the rows a b_i and q p on
+// its W words (mad_row<W + 1>, a zero word on top) and keeps, above them,
+// a pending carry e of two words that belongs at the next lane's first
+// word.  Per word of b two shuffles: q from lane 0's low word, and the
+// window's shift, which takes each lane's low word down to the lane below
+// (where it meets that lane's e; their sum leaves a new e below 8).  At the
+// end each lane adds the e of the lane below, and the one-bit carries that
+// this can still ripple are resolved at once by carry lookahead over the
+// group's ballots (generate: the add carried out; propagate: the part is
+// all ones).  The top lane's e is 0 then, the value being below 2^384.
+// No final subtract: the chain keeps its values below 2p and reduces once.
+template <int L>
+__device__ __forceinline__ void lane_mul(uint32_t* out, const uint32_t* a_part, const uint32_t* b,
+                                         const uint32_t* m_part, int r) {
+  constexpr int W = Fp::N / L;
+  uint32_t t[W + 2], x[W + 1], y[W + 1];
+#pragma unroll
+  for (int j = 0; j < W; j++) {
+    t[j] = 0;
+    x[j] = a_part[j];
+    y[j] = m_part[j];
+  }
+  t[W] = t[W + 1] = x[W] = y[W] = 0;
+#pragma unroll
+  for (int i = 0; i < Fp::N; i++) {
+    mad_row<W + 1>(t, x, b[i]);
+    const uint32_t q = __shfl_sync(kFullWarp, t[0], 0, L) * Fp::INV;
+    mad_row<W + 1>(t, y, q);
+    const uint32_t up = __shfl_down_sync(kFullWarp, t[0], 1, L);
+#pragma unroll
+    for (int j = 0; j + 1 < W; j++) t[j] = t[j + 1];
+    const uint64_t s = (uint64_t)(r == L - 1 ? 0u : up) + t[W] + ((uint64_t)t[W + 1] << 32);
+    t[W - 1] = (uint32_t)s;
+    t[W] = (uint32_t)(s >> 32);
+    t[W + 1] = 0;
+  }
+  const uint32_t below = __shfl_up_sync(kFullWarp, t[W], 1, L);
+  const uint32_t g = add_word<W>(t, r == 0 ? 0u : below);
+  uint32_t ones = ~0u;
+#pragma unroll
+  for (int j = 0; j < W; j++) ones &= t[j];
+  const unsigned base = (threadIdx.x % 32) & ~(unsigned)(L - 1), mask = (1u << L) - 1;
+  const unsigned gen = (__ballot_sync(kFullWarp, g != 0) >> base) & mask;
+  const unsigned prop = gen | ((__ballot_sync(kFullWarp, ones == ~0u) >> base) & mask);
+  add_word<W>(t, ((gen + prop) ^ gen ^ prop) >> r & 1u);  // bit r: the carry into lane r
+#pragma unroll
+  for (int j = 0; j < W; j++) out[j] = t[j];
 }
 
 template <int N>

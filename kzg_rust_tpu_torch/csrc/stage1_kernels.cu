@@ -13,18 +13,28 @@
 // which B takes over four lanes); the port ran it as 29 launches of K1, K3,
 // the Fp chain and the small Fp launchers, with ~25 tensor ops between.
 //
-// A, one thread a point: the flag bits, the 48 big-endian bytes as 12
-// little-endian words, x < p (a non-canonical x is clamped to 0, so the
-// Montgomery steps stay in range), to_mont, x^3 + 4, the square root
-// rhs^((p+1)/4) (field.cuh pow_const, the body of K1's chain, its table in
-// dynamic shared memory), y^2 == rhs, the sign test on from_mont(y) and the
-// conditional negation, and the strict infinity encoding: the rules of the
-// JAX g1_uncompress_points (:73-111).  Each value is the canonical integer
-// of the same field operations, so every row, valid or not, gets the words
-// of the plain version (ops/verify_kernels.py g1_uncompress_points_plain).
-// It writes the projective point, the row's ok, and sets both stage-1
-// flags to 1 for B to clear.  Bound: operations, the chain's 376 squarings
-// and 105 products and five more products and squarings.
+// A, L lanes a point (4 or 2 by the width, ops/verify_kernels.py
+// decompress_lanes; 1 is the one-thread design, kept for comparison):
+// the flag bits, the 48 big-endian bytes as 12 little-endian words, x < p
+// (a non-canonical x is clamped to 0, so the Montgomery steps stay in
+// range), to_mont, x^3 + 4, the square root rhs^((p+1)/4), y^2 == rhs, the
+// sign test on from_mont(y) and the conditional negation, and the strict
+// infinity encoding: the rules of the JAX g1_uncompress_points (:73-111).
+// Each value is the canonical integer of the same field operations, so
+// every row, valid or not, gets the words of the plain version
+// (ops/verify_kernels.py g1_uncompress_points_plain).  It writes the
+// projective point, the row's ok, and sets both stage-1 flags to 1 for B to
+// clear.  Bound: operations, the chain's 375 squarings and 82 products
+// (sliding windows of 5 bits over the odd powers x .. x^31; the 4-bit
+// fixed windows took 376 and 105) and five more products and squarings.
+// A is latency-bound: the chain is ~460 dependent products, and at 2 npad
+// = 128 or 8,192 points one thread a point puts 4 or 256 warps on 528 SM
+// sub-partitions.  So each product of the chain is spread over the point's
+// L lanes (field.cuh lane_mul: each lane runs W = 12 / L words of both
+// CIOS rows, two shuffles a word of the multiplier, carry lookahead by
+// ballot at the end), which cuts the instructions on a product's path and
+// puts L times the warps on the card; the table is laid out by lane.  The
+// decode and the steps after the chain are short and run in every lane.
 //
 // B, four lanes a point: [z^2]P as the halving tree of ops/curve.py
 // sum_points over the 17 chain rows that the nonzero signed base-4 digits
@@ -39,8 +49,8 @@
 // adds of 12 Fp products and 5 products a point.
 //
 // What bounds them at the path's widths (2 npad = 128 or 8,192 points) is
-// latency: A is one dependent chain of ~486 products a thread, as K1's
-// chain was; B's sum is 16 dependent adds.  B's lanes cut an add's wait to
+// latency: A's chain of dependent products (above); B's sum is 16
+// dependent adds.  B's lanes cut an add's wait to
 // the two products of each of its two levels that a lane takes (four
 // instead of twelve, the M2 trees' add_lanes) and put four times as many
 // warps on the card.  The launch cost that held stage 1 back (30 launches
@@ -53,6 +63,8 @@
 // (the entry points return cudaErrorInvalidValue otherwise).
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "curve.cuh"
 
@@ -86,16 +98,55 @@ constexpr uint32_t kSqrtExp[Fp::N] = {0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x0
                                       0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u,
                                       0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
 
-// Its 4-bit digits, most significant first, as field.cuh pow_const takes them.
-PowDigits sqrt_digits() {
-  PowDigits e{};
-  for (int k = 8 * Fp::N - 1; k >= 0; k--) {
-    const uint8_t d = (kSqrtExp[k / 8] >> (4 * (k % 8))) & 15u;
-    if (e.count == 0 && d == 0) continue;
-    e.d[e.count++] = d;
-    if (d > e.top) e.top = d;
+// The square root's chain, by value in a kernel parameter (the constant
+// bank, read by a warp at one address; a CUDA graph captures it): a table
+// of the `entries` odd powers x^(2k - 1), k = 1 .. entries (after x^2),
+// then `steps` steps, step 0 taking entry idx[0] and step k squaring sq[k]
+// times and multiplying by entry idx[k] (none for 0).  The host builds it
+// (ops/limbs.py pow_chain, sliding 5-bit windows) and the entry point
+// refuses one that does not make kSqrtExp.
+constexpr int kChainMaxSteps = 128;
+constexpr int kChainMaxEntries = 16;
+
+struct SqrtChain {
+  uint8_t sq[kChainMaxSteps];
+  uint8_t idx[kChainMaxSteps];
+  uint32_t steps, entries;
+};
+
+// e = e 2^s + v over 13 words; false when a bit leaves the top word.
+bool shift_add(uint32_t* e, int s, uint32_t v) {
+  for (; s > 0; s--) {
+    if (e[Fp::N] >> 31) return false;
+    for (int j = Fp::N; j > 0; j--) e[j] = e[j] << 1 | e[j - 1] >> 31;
+    e[0] <<= 1;
   }
-  return e;
+  for (int j = 0; j <= Fp::N && v; j++) {
+    const uint64_t t = (uint64_t)e[j] + v;
+    e[j] = (uint32_t)t;
+    v = (uint32_t)(t >> 32);
+  }
+  return v == 0;
+}
+
+// Bytes entries, then (sq, idx) a step -> the chain; false for a malformed
+// chain or one that does not make (p + 1) / 4.
+bool parse_chain(const uint8_t* b, long long len, SqrtChain& ch) {
+  if (b == nullptr || len < 3 || len % 2 == 0 || (len - 1) / 2 > kChainMaxSteps) return false;
+  ch = SqrtChain{};
+  ch.entries = b[0];
+  ch.steps = (uint32_t)((len - 1) / 2);
+  if (ch.entries < 1 || ch.entries > kChainMaxEntries) return false;
+  uint32_t e[Fp::N + 1] = {};
+  for (uint32_t k = 0; k < ch.steps; k++) {
+    ch.sq[k] = b[1 + 2 * k];
+    ch.idx[k] = b[2 + 2 * k];
+    if (ch.idx[k] > ch.entries || (k == 0 && (ch.idx[0] == 0 || ch.sq[0] != 0))) return false;
+    if (!shift_add(e, ch.sq[k], ch.idx[k] ? 2 * ch.idx[k] - 1 : 0)) return false;
+  }
+  for (int j = 0; j < Fp::N; j++)
+    if (e[j] != kSqrtExp[j]) return false;
+  return e[Fp::N] == 0;
 }
 
 // A constant Fp element as immediates, NAME() (the CPU tests parse these
@@ -166,23 +217,112 @@ __device__ __forceinline__ bool geq(const Elt& a, const Elt& b) {
   return ge;
 }
 
-// Kernel A.  comp [n, 48] uint8 -> out [n, 3, 12] projective Montgomery
-// points, ok [n] (0 or 1); flags [2], when given, set to 1.
-template <int T>
+// A chain product on this lane's part: the lane product for L > 1, the
+// one-thread CIOS product for L = 1 (canonical, so below 2p too).
+template <int L>
+__device__ __forceinline__ void chain_mul(uint32_t* out, const uint32_t* a_part, const uint32_t* b,
+                                          const uint32_t* m_part, int r) {
+  if constexpr (L == 1) cios_mul<Fp>(out, a_part, b); else lane_mul<L>(out, a_part, b, m_part, r);
+}
+
+// acc <- acc * a over the group (a this lane's part; b is acc whole).
+template <int L>
+__device__ __forceinline__ void chain_step(uint32_t* acc, const uint32_t* a_part, const uint32_t* m_part, int r) {
+  uint32_t b[Fp::N];
+  if constexpr (L == 1) {
+#pragma unroll
+    for (int j = 0; j < Fp::N; j++) b[j] = acc[j];
+  } else {
+    lane_gather<L>(b, acc);
+  }
+  chain_mul<L>(acc, a_part, b, m_part, r);
+}
+
+// acc <- acc^2 over the group; one thread takes the SOS squaring.
+template <int L>
+__device__ __forceinline__ void chain_square(uint32_t* acc, const uint32_t* m_part, int r) {
+  if constexpr (L == 1) {
+    sos_sqr<Fp>(acc, acc);
+  } else {
+    uint32_t a[Fp::N / L];
+#pragma unroll
+    for (int j = 0; j < Fp::N / L; j++) a[j] = acc[j];
+    chain_step<L>(acc, a, m_part, r);
+  }
+}
+
+// y = x^((p+1)/4) (Montgomery, canonical, whole in every lane of the group)
+// by the chain ch, for x < p whole in every lane.  The group's lanes hold
+// W = 12 / L words each of every value of the chain; the table lies in this
+// thread's column `col` of the block's dynamic shared memory, [entry][word
+// of the part][thread] for T threads, so each lane keeps its own part.
+template <int T, int L>
+__device__ __forceinline__ void sqrt_chain(uint32_t* y, const uint32_t* x, uint32_t* col, const SqrtChain& ch, int r) {
+  constexpr int W = Fp::N / L;
+  uint32_t m[W], acc[W], base[Fp::N];
+  const Elt p = modulus();
+  lane_part<L>(m, p.w, r);
+  lane_part<L>(acc, x, r);
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) base[j] = x[j];
+  table_put<W, T>(col, 1, acc);
+  if (ch.entries > 1) {  // the odd powers step by x^2
+    uint32_t sq[W];
+    chain_mul<L>(sq, acc, x, m, r);
+    if constexpr (L == 1) {
+#pragma unroll
+      for (int j = 0; j < Fp::N; j++) base[j] = sq[j];
+    } else {
+      lane_gather<L>(base, sq);
+    }
+  }
+#pragma unroll 1
+  for (uint32_t k = 2; k <= ch.entries; k++) {
+    chain_mul<L>(acc, acc, base, m, r);
+    table_put<W, T>(col, k, acc);
+  }
+  table_get<W, T>(acc, col, ch.idx[0]);
+#pragma unroll 1
+  for (uint32_t k = 1; k < ch.steps; k++) {
+#pragma unroll 1
+    for (uint32_t s = 0; s < ch.sq[k]; s++) chain_square<L>(acc, m, r);
+    const uint32_t d = ch.idx[k];
+    if (d) {
+      uint32_t e[W];
+      table_get<W, T>(e, col, d);
+      chain_step<L>(acc, e, m, r);
+    }
+  }
+  if constexpr (L == 1) {
+#pragma unroll
+    for (int j = 0; j < Fp::N; j++) y[j] = acc[j];
+  } else {
+    lane_gather<L>(y, acc);
+    fp_reduce_once(y, y);  // the lane products leave it below 2p
+  }
+}
+
+// Kernel A over L lanes a point.  comp [n, 48] uint8 -> out [n, 3, 12]
+// projective Montgomery points, ok [n] (0 or 1); flags [2], when given, set
+// to 1.  Every lane of a group decodes its point's row (the same words in
+// each), the chain runs over the group, and lane 0 stores.  A group past n
+// decodes row n - 1 and stores nothing, so every warp's shuffles are whole.
+template <int T, int L>
 __global__ void __launch_bounds__(T) decompress_kernel(const uint4* __restrict__ comp,
                                                        uint4* __restrict__ out,
                                                        uint8_t* __restrict__ ok_out,
                                                        int* __restrict__ flags, uint32_t n,
-                                                       const __grid_constant__ PowDigits e) {
+                                                       const __grid_constant__ SqrtChain ch) {
   extern __shared__ uint32_t table[];
-  const uint32_t i = blockIdx.x * T + threadIdx.x;
-  if (flags != nullptr && i == 0) flags[0] = flags[1] = 1;
-  if (i >= n) return;
+  const int r = threadIdx.x % L;
+  const uint32_t i = blockIdx.x * (T / L) + threadIdx.x / L;
+  if (flags != nullptr && blockIdx.x == 0 && threadIdx.x == 0) flags[0] = flags[1] = 1;
+  const uint32_t row = min(i, n - 1);
 
   // The flag bits of byte 0, and the 48 big-endian bytes, those bits masked
   // off, as little-endian words (word j is bytes 44 - 4j .. 47 - 4j).
   uint32_t raw[Fp::N];
-  load_vec<Fp::N>(raw, comp + (size_t)i * 3);
+  load_vec<Fp::N>(raw, comp + (size_t)row * 3);
   const uint32_t bits = raw[0] & 0xffu;
   const bool comp_bit = bits & 0x80u, inf_bit = bits & 0x40u, sign_bit = bits & 0x20u;
   Elt x;
@@ -195,15 +335,14 @@ __global__ void __launch_bounds__(T) decompress_kernel(const uint4* __restrict__
 
   Elt xm = mul(x, r2_mod_p());
   Elt rhs = add(mul(xm, sqr(xm)), b4_mont());
-  // xm and rhs wait in shared memory, after the tables, while the chain
-  // runs, so that the chain has the registers it has in K1's chain kernel:
-  // held live in registers beside it, they made it about 40% slower on the
-  // H100.
-  uint4* const park = (uint4*)(table + (size_t)e.top * Fp::N * T) + threadIdx.x * 6;
+  // xm and rhs wait in shared memory, after the table, while the chain
+  // runs, so that the chain has the registers: held live beside the
+  // one-thread chain, they made it about 40% slower on the H100.
+  uint4* const park = (uint4*)(table + (size_t)ch.entries * (Fp::N / L) * T) + threadIdx.x * 6;
   sts(park, xm);
   sts(park + 3, rhs);
   Elt y;
-  pow_const<Fp, T>(y.w, rhs.w, table + threadIdx.x, e);
+  sqrt_chain<T, L>(y.w, rhs.w, table + threadIdx.x, ch, r);
   xm = lds(park);
   rhs = lds(park + 3);
   const bool on_curve = equal(sqr(y), rhs);
@@ -212,6 +351,7 @@ __global__ void __launch_bounds__(T) decompress_kernel(const uint4* __restrict__
   const bool y_large = geq(mul(y, unit), half_p1());  // from_mont(y) >= (p+1)/2
   if (y_large != sign_bit) y = sub(zero(), y);
 
+  if (i >= n || r != 0) return;
   const bool ok = comp_bit && (inf_bit ? !sign_bit && x_zero : x_ok && on_curve);
   uint4* o = out + (size_t)i * kVecs;
   stg(o, inf_bit ? zero() : xm);
@@ -314,15 +454,26 @@ bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 // The opt-in to more than 48 KB of dynamic shared memory is a function
 // attribute of the current device's context: set at every launch, to what
 // this one needs, as the chain launchers of field_kernels.cu do.
-template <int T>
-int launch_decompress(const void* comp, void* out, void* ok, void* flags, long long n, cudaStream_t s) {
-  static const PowDigits e = sqrt_digits();
-  const size_t smem = ((size_t)e.top * Fp::N * 4 + 2 * Fp::N * 4) * T;  // the tables, then xm and rhs
-  const cudaError_t opt_in = cudaFuncSetAttribute(decompress_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int T, int L>
+int launch_decompress(const void* comp, void* out, void* ok, void* flags, long long n, const SqrtChain& ch,
+                      cudaStream_t s) {
+  const size_t smem = ((size_t)ch.entries * (Fp::N / L) + 6 * 4) * 4 * T;  // the table, then xm and rhs
+  const cudaError_t opt_in =
+      cudaFuncSetAttribute(decompress_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  decompress_kernel<T><<<(unsigned)((n + T - 1) / T), T, smem, s>>>(
-      (const uint4*)comp, (uint4*)out, (uint8_t*)ok, (int*)flags, (uint32_t)n, e);
+  decompress_kernel<T, L><<<(unsigned)((n * L + T - 1) / T), T, smem, s>>>(
+      (const uint4*)comp, (uint4*)out, (uint8_t*)ok, (int*)flags, (uint32_t)n, ch);
   return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_decompress_lanes(const void* comp, void* out, void* ok, void* flags, long long n,
+                            const SqrtChain& ch, cudaStream_t s) {
+  switch (block_threads(n * L)) {
+    case 128: return launch_decompress<128, L>(comp, out, ok, flags, n, ch, s);
+    case 64: return launch_decompress<64, L>(comp, out, ok, flags, n, ch, s);
+    default: return launch_decompress<32, L>(comp, out, ok, flags, n, ch, s);
+  }
 }
 
 template <int T>
@@ -342,15 +493,29 @@ bool bad_count(long long n) { return n < 1 || n >= (1LL << 29); }
 }  // namespace
 
 // Kernel A: comp [n, 48] uint8 -> points [n, 3, 12], ok [n] uint8; flags
-// [2] int32 set to 1 when not null.
+// [2] int32 set to 1 when not null; `lanes` (1, 2 or 4) a point; the square
+// root's chain as `chain_len` bytes (parse_chain).  The last chain checked
+// on this host thread is kept, so a launch with the same bytes skips the
+// check.
 extern "C" int kzg_g1_decompress(const void* comp, void* points, void* ok, void* flags, long long n,
-                                 void* stream) {
-  if (!aligned(comp) || !aligned(points) || bad_count(n)) return (int)cudaErrorInvalidValue;
+                                 long long lanes, const void* chain, long long chain_len, void* stream) {
+  if (!aligned(comp) || !aligned(points) || bad_count(n) || chain_len > 1 + 2 * kChainMaxSteps)
+    return (int)cudaErrorInvalidValue;
+  static thread_local uint8_t last[1 + 2 * kChainMaxSteps];
+  static thread_local long long last_len = 0;
+  static thread_local SqrtChain ch;
+  if (chain == nullptr || chain_len != last_len || memcmp(chain, last, (size_t)chain_len) != 0) {
+    last_len = 0;
+    if (!parse_chain((const uint8_t*)chain, chain_len, ch)) return (int)cudaErrorInvalidValue;
+    memcpy(last, chain, (size_t)chain_len);
+    last_len = chain_len;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (block_threads(n)) {
-    case 128: return launch_decompress<128>(comp, points, ok, flags, n, s);
-    case 64: return launch_decompress<64>(comp, points, ok, flags, n, s);
-    default: return launch_decompress<32>(comp, points, ok, flags, n, s);
+  switch (lanes) {
+    case 1: return launch_decompress_lanes<1>(comp, points, ok, flags, n, ch, s);
+    case 2: return launch_decompress_lanes<2>(comp, points, ok, flags, n, ch, s);
+    case 4: return launch_decompress_lanes<4>(comp, points, ok, flags, n, ch, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

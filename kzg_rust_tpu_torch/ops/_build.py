@@ -56,7 +56,7 @@ ENTRY_POINTS = {
     "kzg_fr_sub": ("field_kernels.cu", _BINARY),
     "kzg_fp_cmp": ("field_kernels.cu", _CMP),
     "kzg_fr_cmp": ("field_kernels.cu", _CMP),
-    "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _I64, _I64, _I64, _P]),
+    "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]),
     "kzg_fp_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),
     "kzg_fr_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),
     "kzg_proj_add": ("curve_kernels.cu", [_P, _P, _P, _I64, _P]),
@@ -65,7 +65,7 @@ ENTRY_POINTS = {
     "kzg_glv_digits": ("msm_kernels.cu", [_P, _P, _I64, _P]),
     "kzg_msm_glv": ("msm_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
-    "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _P]),
+    "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _P, _I64, _P]),
     "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _P]),
 }
 

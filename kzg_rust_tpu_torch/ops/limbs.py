@@ -26,6 +26,7 @@ carry-save passes until none is left.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -348,26 +349,85 @@ def geq_const(spec: FieldSpec, a: torch.Tensor, bound: int) -> torch.Tensor:
     return _compare(a, spec.const(bound, a.device), 1)
 
 
-def sum_mod(spec: FieldSpec, x: torch.Tensor, chunk: int = 64) -> torch.Tensor:
-    """Modular sum along axis 0 of ``[k, ..., nwords]`` (Montgomery or
-    canonical in, the same form out).  A plain modular sum, where the JAX
-    package used one raw column accumulation plus one REDC
-    (``limbs.sum_mont_redc``): callers that want that function's canonical
-    output apply :func:`from_mont`.  On the card, rows are summed in chunks
-    of ``chunk`` per thread until one row is left (two launches for 4096)."""
+SUM_BLOCKS = (256, 64, 32)  # the domain sum's block sizes, widest first
+SUM_MAX_PAIRS = 16  # 16-byte halves of a row a block takes at most
+_SM_COUNTS: dict = {}
+
+
+def sum_tiles(inner: int) -> int:
+    """The domain sum's tiles (blocks a row block) for ``inner`` columns."""
+    return -(-2 * inner // min(SUM_MAX_PAIRS, 1 << (2 * inner - 1).bit_length()))
+
+
+def sum_config(k: int, inner: int, sms: int) -> tuple[int, int, int]:
+    """The domain sum's launch for [k, inner] elements on ``sms`` SMs:
+    (threads a block, 16-byte halves a block, row blocks).  A block takes
+    up to 16 neighbouring halves of a row (a tile; an element is two) over
+    its remaining threads as row lanes; a row block is one block a tile.
+    The widest block (256, 64 or 32 threads) that still gives every SM a
+    block with a row for each lane; then two blocks an SM with 256-thread
+    blocks, one with narrower ones, and at least two row blocks (on the
+    H100: [4096, 64] in 8 x 33 blocks of 256, [4096, 1] in 132 of 32,
+    [4096, 4096] in 512 x 2 of 256, each the fastest of the sweep)."""
+    pairs = min(SUM_MAX_PAIRS, 1 << (2 * inner - 1).bit_length())
+    tiles = sum_tiles(inner)
+    for threads in SUM_BLOCKS:
+        most = -(-k // (threads // pairs))  # row blocks with a row for every lane
+        if tiles * most >= sms or threads == SUM_BLOCKS[-1]:
+            per_sm = 2 if threads == SUM_BLOCKS[0] else 1
+            return threads, pairs, min(most, max(2, -(-per_sm * sms // tiles)))
+    raise AssertionError("unreachable")
+
+
+def _sm_count(device) -> int:
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def sum_tickets(inner: int, device) -> torch.Tensor:
+    """Zeroed tickets for domain sums of ``inner`` columns on ``device``,
+    one word a tile; the last block of a tile sets its word back to zero,
+    so the tickets stay zero between launches and across CUDA-graph
+    replays.  Whoever keeps them for repeated sums owns them (a captured
+    graph holds their address), and the launches that share them must
+    not overlap: one stream, in order."""
+    return torch.zeros(sum_tiles(inner), dtype=torch.int32, device=device)
+
+
+def sum_mod(spec: FieldSpec, x: torch.Tensor, tickets: torch.Tensor | None = None) -> torch.Tensor:
+    """Modular sum along axis 0 of ``[k, ..., nwords]`` (every element <
+    N, Montgomery or canonical in, the same form out).  A plain modular
+    sum, where the JAX package used one raw column accumulation plus one
+    REDC (``limbs.sum_mont_redc``): callers that want that function's
+    canonical output apply :func:`from_mont`.  On the card one launch of
+    ``kzg_fr_sum_rows`` for any k (raw 64-bit column sums, the row blocks'
+    sums added by each tile's last block, one reduction a column), with
+    the caller's ``tickets`` (:func:`sum_tickets`) or, by default, tickets
+    of its own."""
     _check(spec, x)
     if x.device.type == "cpu":
         return sum_mod_plain(spec, x)
     if spec is not FR:
         raise ValueError("sum_mod: the card's kernel is built for Fr only")
-    inner = math.prod(x.shape[1:-1])
+    if x.device.type != "cuda":
+        raise RuntimeError(f"kzg_fr_sum_rows: kernels launch only on CUDA tensors, got {x.device}")
+    k, inner = x.shape[0], math.prod(x.shape[1:-1])
+    if not 1 <= k < 1 << 32:
+        raise ValueError(f"sum_mod: {k} rows; the kernel sums 1 to 2^32 - 1")
     x = x.contiguous()
-    while x.shape[0] > 1:
-        k = x.shape[0]
-        out = torch.empty((-(-k // chunk),) + x.shape[1:], dtype=torch.int32, device=x.device)
-        _build.launch("kzg_fr_sum_rows", x.device, x, out, k, inner, chunk)
-        x = out
-    return x[0]
+    out = torch.empty(x.shape[1:], dtype=torch.int32, device=x.device)
+    if inner:
+        if tickets is None:
+            tickets = sum_tickets(inner, x.device)
+        elif tickets.dtype != torch.int32 or tickets.device != x.device or tickets.numel() < sum_tiles(inner) or not tickets.is_contiguous():
+            raise ValueError(f"sum_mod: {inner} columns need {sum_tiles(inner)} contiguous int32 tickets on {x.device}")
+        threads, pairs, row_blocks = sum_config(k, inner, _sm_count(x.device))
+        partials = torch.empty(row_blocks * 2 * inner * 4, dtype=torch.int64, device=x.device)
+        _check_aligned("kzg_fr_sum_rows", x, out, partials)
+        _build.launch("kzg_fr_sum_rows", x.device, x, partials, tickets, out, k, inner, threads, pairs, row_blocks)
+    return out
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -436,6 +496,78 @@ def mont_pow_const_plain(
             acc = mul(spec, acc, acc)
         if d:
             acc = mul(spec, acc, table[d])
+    return acc
+
+
+class PowChain(NamedTuple):
+    """A constant-exponent chain as stage 1's square-root kernel takes it
+    (``csrc/stage1_kernels.cu`` SqrtChain): a table of the ``entries`` odd
+    powers a^(2k - 1), k = 1 .. entries (after a^2), then ``steps``:
+    (squarings, entry) pairs, the first taking its entry alone, the others
+    squaring and then multiplying by their entry (none for 0)."""
+
+    entries: int
+    steps: tuple
+
+    @property
+    def products(self) -> int:
+        """Products and squarings the chain takes."""
+        table = self.entries - 1 + (self.entries > 1)
+        return table + sum(sq + (idx != 0) for sq, idx in self.steps[1:])
+
+    def exponent(self) -> int:
+        e = 0
+        for sq, idx in self.steps:
+            e = (e << sq) + (2 * idx - 1 if idx else 0)
+        return e
+
+    def to_bytes(self) -> bytes:
+        return bytes([self.entries] + [v for step in self.steps for v in step])
+
+
+def pow_chain(exponent: int, window: int = 5) -> PowChain:
+    """Left-to-right sliding windows of up to ``window`` bits over the odd
+    powers a, a^3, .. (e >= 1): each window, from a one bit to the last one
+    bit within ``window`` bits, is one product by its odd value's entry
+    after as many squarings as it has bits (and the zeros before it)."""
+    if exponent < 1 or window < 1:
+        raise ValueError("pow_chain: exponent and window at least 1")
+    bits = f"{exponent:b}"
+    runs, zeros, i = [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            zeros, i = zeros + 1, i + 1
+            continue
+        j = min(i + window, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        value = int(bits[i:j], 2)
+        runs.append((zeros + j - i if runs else 0, (value + 1) // 2))
+        zeros, i = 0, j
+    if zeros:
+        runs.append((zeros, 0))
+    steps = []
+    for sq, idx in runs:  # every squaring count below 256
+        while sq > 255:
+            steps.append((255, 0))
+            sq -= 255
+        steps.append((sq, idx))
+    return PowChain(max(idx for _, idx in runs), tuple(steps))
+
+
+def mont_pow_chain_plain(spec: FieldSpec, a: torch.Tensor, chain: PowChain, mul=mont_mul_plain) -> torch.Tensor:
+    """a^e by ``chain`` (Montgomery in and out), one ``mul`` per product or
+    squaring, in the kernel's order."""
+    base = mul(spec, a, a) if chain.entries > 1 else a
+    table = [None, a]
+    for _ in range(chain.entries - 1):
+        table.append(mul(spec, table[-1], base))
+    acc = table[chain.steps[0][1]]
+    for sq, idx in chain.steps[1:]:
+        for _ in range(sq):
+            acc = mul(spec, acc, acc)
+        if idx:
+            acc = mul(spec, acc, table[idx])
     return acc
 
 

@@ -40,6 +40,23 @@ _Z2_DIGITS = glv.recode_base4_signed([glv.Z2])[:, 0]  # [66] int8
 _B4_MONT = 4 * FP.mont_r % _P
 # (p+1)/2: y is "lexicographically largest" iff y >= (p+1)/2.
 _HALF_P1 = (_P + 1) // 2
+# The square root rhs^((p+1)/4): its chain (sliding 5-bit windows over the
+# odd powers, 375 squarings and 82 products), which kernel A takes as a
+# parameter and its plain version follows.
+SQRT_CHAIN = L.pow_chain((_P + 1) // 4, 5)
+_SQRT_CODE = SQRT_CHAIN.to_bytes()
+DECOMPRESS_LANES = (4, 2, 1)  # kernel A's lanes a point, most first
+
+
+def decompress_lanes(n: int, sms: int) -> int:
+    """Kernel A's lanes a point for ``n`` points on ``sms`` SMs: 4 while
+    that keeps at most one warp on each of the SMs' four sub-partitions,
+    else 2.  The chain is latency-bound there, so more lanes (a shorter
+    product) win; past it the warps queue on the integer pipes (on the
+    H100: 4 lanes 0.241 ms from 128 to 2,048 points, at 8,192 points, the
+    widest a stage-1 dispatch gives, 2 lanes 0.336 ms against 4 lanes'
+    0.373).  One lane a point is the one-thread design, for comparison."""
+    return 4 if n * 4 <= 4 * 32 * sms else 2
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +86,7 @@ def g1_uncompress_points_plain(comp: torch.Tensor):
     x = torch.where(x_ok[:, None], x, 0)
     xm = mul(x, FP.const("r2", dev))
     rhs = L.add_mod_plain(FP, mul(xm, mul(xm, xm)), FP.const(_B4_MONT, dev))
-    ym = L.mont_pow_const_plain(FP, rhs, (_P + 1) // 4)
+    ym = L.mont_pow_chain_plain(FP, rhs, SQRT_CHAIN)
     on_curve = L.cmp_plain(mul(ym, ym), rhs, 0)
     y_large = L.cmp_plain(mul(ym, FP.const("one", dev)), FP.const(_HALF_P1, dev), 1)
     ym = torch.where((y_large != sign_bit)[:, None], L.sub_mod_plain(FP, FP.const("zero", dev), ym), ym)
@@ -90,29 +107,34 @@ def _check_compressed(comp: torch.Tensor) -> None:
         raise ValueError(f"expected uint8 [N, 48] compressed points, got {comp.dtype} {tuple(comp.shape)}")
 
 
-def _decompress(comp: torch.Tensor, out: torch.Tensor, flags=None) -> torch.Tensor:
+def _decompress(comp: torch.Tensor, out: torch.Tensor, flags=None, lanes: int | None = None) -> torch.Tensor:
     """Kernel A: decompress ``comp`` into ``out`` [N, 3, 12] (contiguous);
     returns ok [N] uint8.  ``flags`` [2] int32, when given, is set to 1
-    (kernel B clears it)."""
+    (kernel B clears it).  ``lanes``, 1, 2 or 4 a point, is the kernel's
+    variant (by default :func:`decompress_lanes`); the square root runs
+    :data:`SQRT_CHAIN`, which the kernel checks makes (p+1)/4."""
     n = comp.shape[0]
+    if lanes is None:
+        lanes = decompress_lanes(n, L._sm_count(comp.device)) if comp.device.type == "cuda" else DECOMPRESS_LANES[0]
     if not comp.is_contiguous() or not out.is_contiguous():
         raise ValueError("kzg_g1_decompress: the compressed rows and the points must be contiguous")
     L._check_aligned("kzg_g1_decompress", comp, out)
     ok = torch.empty(n, dtype=torch.uint8, device=comp.device)
-    _build.launch("kzg_g1_decompress", comp.device, comp, out, ok, flags, n)
+    _build.launch("kzg_g1_decompress", comp.device, comp, out, ok, flags, n, lanes, _SQRT_CODE, len(_SQRT_CODE))
     return ok
 
 
-def g1_uncompress_points(comp: torch.Tensor):
+def g1_uncompress_points(comp: torch.Tensor, lanes: int | None = None):
     """[N, 48] uint8 ZCash-compressed G1 -> ([N, 3, 12] Montgomery
     projective points, ok [N] bool), by :func:`g1_uncompress_points_plain`'s
     rules.  On a CUDA tensor one launch of kernel A (``kzg_g1_decompress``,
-    ``csrc/stage1_kernels.cu``), on a CPU tensor the plain version."""
+    ``csrc/stage1_kernels.cu``; ``lanes`` picks its variant),
+    on a CPU tensor the plain version."""
     _check_compressed(comp)
     if comp.device.type == "cpu":
         return g1_uncompress_points_plain(comp)
     points = torch.empty((comp.shape[0], 3, FP.nwords), dtype=torch.int32, device=comp.device)
-    return points, _decompress(comp, points).view(torch.bool)
+    return points, _decompress(comp, points, lanes=lanes).view(torch.bool)
 
 
 # ---------------------------------------------------------------------------
@@ -343,18 +365,19 @@ def build_generator_table(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor):
+def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor, tickets=None):
     """Ingest + canonicality + batched barycentric evaluation:
     blob_bytes [B, n, 32] uint8 BE, xs [B, 8] canonical -> (ys [B, 8]
     canonical, ok bool scalar).  ``ok`` is False iff any field element is
     >= r; the ys are garbage in that case and callers must raise.
+    ``tickets`` go to the domain sum (:func:`limbs.sum_mod`).
 
     The evaluations are laid out domain-major, [n, B, 8], so that the
     product tree of the batch inversion and the domain sum run over
     contiguous halves and rows of axis 0."""
     evals = L.bytes_be_to_words(blob_bytes.transpose(0, 1))  # [n, B, 8], on the card
     ok = ~L.geq_mod(FR, evals).any()
-    return bary_batch(ctx, evals, xs), ok
+    return bary_batch_inv(ctx, evals, xs, tickets)[0], ok
 
 
 def bary_batch(ctx, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -364,7 +387,7 @@ def bary_batch(ctx, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     return bary_batch_inv(ctx, evals, xs)[0]
 
 
-def bary_batch_inv(ctx, evals: torch.Tensor, xs: torch.Tensor):
+def bary_batch_inv(ctx, evals: torch.Tensor, xs: torch.Tensor, tickets=None):
     """:func:`bary_batch`, also returning the inverses it made: (ys [B, 8]
     canonical, inv [n, B, 8] = mont(1 / (x - w_i))), which the prover's
     out-of-domain quotient reuses.
@@ -379,7 +402,7 @@ def bary_batch_inv(ctx, evals: torch.Tensor, xs: torch.Tensor):
     d = L.sub_mod(FR, x_m[None], ctx.roots_m[:, None])  # [n, B, 8]
     inv = L.batch_mont_inv(FR, d, axis=0)
     terms = mul(mul(inv, ctx.roots_m2[:, None]), evals)  # Montgomery form
-    s = L.from_mont(FR, L.sum_mod(FR, terms))  # canonical sum
+    s = L.from_mont(FR, L.sum_mod(FR, terms, tickets))  # canonical sum
     s = mul(s, ctx.inv_n_m)  # canonical x mont -> canonical
     xn = L.mont_pow_const(FR, x_m, ctx.n)
     return mul(s, L.sub_mod(FR, xn, FR.const("one_mont", xs.device))), inv

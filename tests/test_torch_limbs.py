@@ -251,3 +251,259 @@ def test_cuda_launch_needs_a_cuda_tensor():
     with pytest.raises(RuntimeError, match="CUDA"):
         _build.launch("kzg_fp_mont_mul", a.device, a, a, a, 2, 1, 2, 1, 2)
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# The domain sum's kernel (kzg_fr_sum_rows): its arithmetic mirrored here
+# ---------------------------------------------------------------------------
+
+
+def _sum_rows_mirror(x: np.ndarray, threads: int, pairs: int, row_blocks: int) -> list[int]:
+    """kzg_fr_sum_rows' arithmetic on x [k, inner, 8] uint32 words: each
+    row block's 64-bit column sums of the 16-byte halves over its row lanes
+    (rows j with (j mod row_blocks R) // R == the row block, R = threads /
+    pairs), the row blocks' sums added, then per column the carry into nine
+    words S and S mod r by Barrett's quotient floor(floor(S / 2^224) mu /
+    2^64), mu = floor(2^288 / r), and at most two subtracts of r."""
+    k, inner = x.shape[:2]
+    lanes = threads // pairs
+    halves = x.reshape(k, 2 * inner, 4).astype(np.uint64)
+    block_of_row = (np.arange(k) % (row_blocks * lanes)) // lanes
+    partials = np.stack([halves[block_of_row == b].sum(0, dtype=np.uint64) for b in range(row_blocks)])
+    cols = partials.sum(0, dtype=np.uint64).reshape(inner, 8)
+    mu = (1 << 288) // R
+    out = []
+    for c in range(inner):
+        words, carry = [], 0
+        for j in range(8):
+            w = int(cols[c, j]) + carry
+            assert w < 1 << 64  # no 64-bit sum overflows
+            words.append(w & 0xFFFFFFFF)
+            carry = w >> 32
+        assert carry < 1 << 31  # S < 2^287
+        s = sum(w << (32 * j) for j, w in enumerate(words)) + (carry << 256)
+        q = ((s >> 224) * mu) >> 64
+        d = s - q * R
+        assert 0 <= d < 3 * R and q < 1 << 34
+        for _ in range(2):
+            d = d - R if d >= R else d
+        out.append(d)
+    return out
+
+
+def _sum_inputs(k: int, inner: int, fill: str) -> tuple[np.ndarray, list[int]]:
+    if fill == "max":  # every element r - 1: the largest lazy sum
+        vals = [R - 1] * (k * inner)
+    else:
+        vals = _values(k * 1000 + inner, R, k * inner)
+        vals[0] = R - 1
+    words = L.ints_to_words(8, vals).view(np.uint32).reshape(k, inner, 8)
+    return words, vals
+
+
+SUM_CASES = [(k, inner, "random") for k in (1, 2, 63, 64, 65, 4096) for inner in (1, 3, 64)] + [
+    (4096, 64, "max"),
+    (4096, 1, "max"),
+    (65, 3, "max"),
+]
+
+
+@pytest.mark.parametrize("k,inner,fill", SUM_CASES, ids=lambda v: str(v))
+def test_sum_rows_mirror(k, inner, fill):
+    """The domain sum kernel's arithmetic (lazy 64-bit column sums over the
+    launch's row blocks, then one reduction a column), at the launch
+    sum_config gives a 132-SM card, against the port's plain sum_mod_plain
+    (a halving tree of modular adds) and the JAX package's one-REDC
+    sum_mont_redc fed the same values in its Montgomery form (whose output
+    is the canonical sum)."""
+    words, vals = _sum_inputs(k, inner, fill)
+    got = _sum_rows_mirror(words, *L.sum_config(k, inner, 132))
+    want = [sum(vals[c::inner]) % R for c in range(inner)]
+    assert got == want
+    plain = L.sum_mod_plain(L.FR, torch.from_numpy(words.view(np.int32)))
+    assert L.words_to_ints(plain) == want
+    jr = 1 << (12 * jfields.FR.nlimbs)
+    jx = jnp.asarray(JL.ints_to_limbs(jfields.FR.nlimbs, [v * jr % R for v in vals])).reshape(k, inner, -1)
+    assert JL.limbs_to_ints(np.asarray(JL.sum_mont_redc(jfields.FR, jx, axis=0))) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_sum_config(sms):
+    """The domain sum's launch: at the path's shapes it gives every SM a
+    block (the barycentric chunk's [4096, 64] with blocks of 256 threads,
+    a proof's [4096, 1] with blocks of 32); no row block lacks rows; the
+    mirror agrees with every configuration on the same inputs."""
+    for k, inner in ((4096, 64), (4096, 1), (4096, 4096), (1, 1), (65, 3)):
+        threads, pairs, row_blocks = L.sum_config(k, inner, sms)
+        tiles = -(-2 * inner // pairs)
+        assert threads in L.SUM_BLOCKS and pairs in (2, 4, 8, 16) and pairs >= min(16, 2 * inner)
+        assert L.sum_tiles(inner) == tiles
+        assert (row_blocks - 1) * (threads // pairs) < k  # every row block has a row for its first lane
+        if (k, inner) in ((4096, 64), (4096, 1)):
+            assert tiles * row_blocks >= sms
+    assert L.sum_config(4096, 64, 132) == (256, 16, 33)
+    assert L.sum_config(4096, 1, 132) == (32, 2, 132)
+    assert L.sum_config(4096, 4096, 132) == (256, 16, 2)
+    words, vals = _sum_inputs(65, 3, "random")
+    want = [sum(vals[c::3]) % R for c in range(3)]
+    for threads, pairs, row_blocks in ((256, 8, 1), (64, 8, 9), (64, 8, 17), (64, 16, 2)):
+        assert _sum_rows_mirror(words, threads, pairs, row_blocks) == want
+
+
+def test_sum_kernel_constants_and_wrapper():
+    """The domain sum's Barrett factor in csrc/field_kernels.cu is
+    floor(2^288 / r); the entry point takes the wrapper's arguments; on a
+    tensor off the CPU the wrapper launches or raises (the meta device has
+    no kernels: nothing is counted).  Tickets are zero words, one a tile
+    (over 1,024 tiles past 8,192 columns)."""
+    text = (REPO_ROOT / "kzg_rust_tpu_torch" / "csrc" / "field_kernels.cu").read_text()
+    mu = re.search(r"constexpr unsigned long long kFrBarrettMu = (0x[0-9a-f]+)ull;", text).group(1)
+    assert int(mu, 16) == (1 << 288) // R
+    assert 'extern "C" int kzg_fr_sum_rows(const void* x, void* partials, void* tickets, void* out,' in text
+    assert len(_build.ENTRY_POINTS["kzg_fr_sum_rows"][1]) == 10
+    for inner, tiles in ((1, 1), (64, 8), (8192, 1024), (16384, 2048)):
+        t = L.sum_tickets(inner, "cpu")
+        assert t.dtype == torch.int32 and t.numel() == tiles and not t.any()
+    _build.reset_launches()
+    meta = torch.empty((4096, 1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.sum_mod(L.FR, meta)
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's square root: the product over L lanes and the chain, mirrored
+# ---------------------------------------------------------------------------
+
+_M32 = (1 << 32) - 1
+_FP_INV = (-pow(P, -1, 1 << 32)) % (1 << 32)
+
+
+def _lookahead(gen: int, prop: int, lanes: int) -> int:
+    """field.cuh lane_mul's carry lookahead: the carry into each lane (bit
+    r) from its group's generate and propagate bits."""
+    a, b = gen, gen | prop
+    return ((a + b) ^ a ^ b) & ((1 << lanes) - 1)
+
+
+def _lane_mul_mirror(a: int, b: int, lanes: int) -> int:
+    """field.cuh lane_mul on Python ints, lane by lane: each lane's W words
+    and its pending two-word carry e as one integer below 2^(32 (W + 2)),
+    the rows a b_i and q p on each lane's part, the shift (a lane's low word
+    down to the lane below, where it meets that lane's e), then the lane
+    below's e added and the one-bit carries resolved by the lookahead."""
+    w = 12 // lanes
+    part = lambda v, r: (v >> (32 * w * r)) & ((1 << (32 * w)) - 1)  # noqa: E731
+    a_parts = [part(a, r) for r in range(lanes)]
+    m_parts = [part(P, r) for r in range(lanes)]
+    t = [0] * lanes
+    for i in range(12):
+        bi = (b >> (32 * i)) & _M32
+        t = [t[r] + a_parts[r] * bi for r in range(lanes)]
+        q = (t[0] & _M32) * _FP_INV & _M32
+        t = [t[r] + m_parts[r] * q for r in range(lanes)]
+        assert all(v < 1 << (32 * (w + 2)) for v in t)  # no carry leaves the lane's window
+        assert t[0] & _M32 == 0
+        up = [t[r + 1] & _M32 for r in range(lanes - 1)] + [0]
+        t = [(t[r] >> 32) + (up[r] << (32 * (w - 1))) for r in range(lanes)]
+        assert all(v >> (32 * w) < 8 for v in t)  # the new e
+    e = [v >> (32 * w) for v in t]
+    assert e[-1] == 0  # the value is below 2^384
+    parts = [(t[r] & ((1 << (32 * w)) - 1)) + (e[r - 1] if r else 0) for r in range(lanes)]
+    gen = sum(1 << r for r in range(lanes) if parts[r] >> (32 * w))
+    parts = [v & ((1 << (32 * w)) - 1) for v in parts]
+    prop = sum(1 << r for r in range(lanes) if parts[r] == (1 << (32 * w)) - 1)
+    carries = _lookahead(gen, prop, lanes)
+    parts = [(parts[r] + (carries >> r & 1)) & ((1 << (32 * w)) - 1) for r in range(lanes)]
+    return sum(v << (32 * w * r) for r, v in enumerate(parts))
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_lane_product_mirror(lanes):
+    """Kernel A's product over 2 and 4 lanes a point (field.cuh lane_mul),
+    mirrored word for word, against mont_mul_plain (K1's plain version): on
+    seeded values, on 0, 1 and p - 1, on operands whose words are all ones
+    up to a lane boundary (2^256 - 1, 2^352 - 1), and on 2p - 1, the
+    largest value the chain hands it.  It returns a value below 2p, equal to
+    the plain version's modulo p."""
+    vals = _values(9, P, 12) + [0, 1, P - 1, (1 << 256) - 1, (1 << 352) - 1, 2 * P - 1]
+    a, b = vals, vals[3:] + vals[:3]
+    want = L.words_to_ints(
+        L.mont_mul_plain(L.FP, L.to_device(L.FP, [x % P for x in a], "cpu"), L.to_device(L.FP, [y % P for y in b], "cpu"))
+    )
+    for x, y, wv in zip(a, b, want):
+        got = _lane_mul_mirror(x, y, lanes)
+        assert got < 2 * P and got % P == wv, (hex(x), hex(y))
+    # Chained as the square root runs it: values stay below 2p, the end is
+    # the canonical power after one subtract.
+    x = _values(10, P, 1)[0]
+    acc = x
+    for _ in range(40):
+        acc = _lane_mul_mirror(acc, acc, lanes)
+        assert acc < 2 * P
+    rinv = pow(1 << 384, -1, P)
+    assert acc % P == pow(x, 1 << 40, P) * pow(rinv, (1 << 40) - 1, P) % P
+
+
+def test_lane_carry_lookahead():
+    """lane_mul's carry lookahead against a ripple carry, for every
+    generate and propagate pattern of 2 and 4 lanes (disjoint, as a lane
+    that carries out after adding a small carry cannot be all ones)."""
+    for lanes in (2, 4):
+        for gen in range(1 << lanes):
+            for prop in range(1 << lanes):
+                if gen & prop:
+                    continue
+                carry, want = 0, 0
+                for r in range(lanes):
+                    want |= carry << r
+                    carry = (gen >> r & 1) | ((prop >> r & 1) & carry)
+                assert _lookahead(gen, prop, lanes) == want
+
+
+@pytest.mark.parametrize("window", [1, 3, 4, 5])
+def test_pow_chain_windows(window):
+    """Sliding-window chains (the square root's schedule, ops/limbs.py
+    pow_chain) rebuild their exponent for small, wide and sparse exponents,
+    and mont_pow_chain_plain on them gives a^e with the chain's count of
+    products."""
+    exps = [1, 2, 3, 5, 15, 16, 31, 4096, R - 2, (P + 1) // 4, (1 << 600) + 1]
+    for e in exps:
+        chain = L.pow_chain(e, window)
+        assert chain.exponent() == e and all(0 <= sq < 256 for sq, _ in chain.steps)
+        assert 1 <= chain.entries <= 1 << max(window - 1, 0)
+    x = [0, 1, P - 1] + _values(11, P, 3)
+    am = L.to_mont(L.FP, L.to_device(L.FP, x, "cpu"))
+    for e in (5, 4096, R - 2):
+        chain = L.pow_chain(e, window)
+        products = []
+
+        def mul(s, u, v):
+            products.append(1)
+            return L.mont_mul_plain(s, u, v)
+
+        got = L.mont_pow_chain_plain(L.FP, am, chain, mul=mul)
+        assert len(products) == chain.products
+        assert L.words_to_ints(L.from_mont(L.FP, got)) == [pow(v, e, P) for v in x]
+
+
+def test_sqrt_chain_matches_pow_and_jax():
+    """The square root's chain (sliding 5-bit windows over the odd powers,
+    verify_kernels.SQRT_CHAIN): 16 entries, 375 squarings and 82 products
+    (457 against the 481 of the 4-bit fixed windows it replaced), and it
+    gives x^((p+1)/4) on 0, 1, p - 1 and seeded values, the raw Montgomery
+    words of the JAX package's mont_pow_const."""
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    e = (P + 1) // 4
+    chain = V.SQRT_CHAIN
+    assert chain == L.pow_chain(e, 5) and chain.exponent() == e
+    assert (chain.entries, chain.products) == (16, 457)
+    assert sum(sq for sq, _ in chain.steps) == 375
+    x = [0, 1, P - 1] + _values(12, P, 5)
+    xm = [v * L.FP.mont_r % P for v in x]
+    jm = np.asarray(JL.mont_pow_const(jfields.FP, jnp.asarray(JL.ints_to_limbs(jfields.FP.nlimbs, xm)), e))
+    got = L.mont_pow_chain_plain(L.FP, L.to_device(L.FP, xm, "cpu"), chain)
+    assert torch.equal(got, JS.fp_from_jax(jm))
+    rinv = pow(L.FP.mont_r, -1, P)
+    assert [v * rinv % P for v in L.words_to_ints(got)] == [pow(v, e, P) for v in x]

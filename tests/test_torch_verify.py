@@ -345,6 +345,32 @@ def test_stage1_kernel_constants_match():
         assert f'extern "C" int {entry}(' in text
 
 
+@pytest.mark.parametrize("lanes", [4, 2, 1])
+def test_stage1_sqrt_chain_fits_kernel_a(lanes):
+    """Kernel A takes the square root's chain as a parameter: the chain the
+    wrapper passes (verify_kernels.SQRT_CHAIN) fits the kernel's SqrtChain
+    (steps, entries, squarings a step below 256, step 0 loading a nonzero
+    entry alone) and makes the kernel's kSqrtExp, which the entry point
+    checks it against; each of the lanes a point that the wrapper passes is
+    one the entry point takes, and the wrapper picks 4 lanes up to one warp
+    a sub-partition of the 132 SMs, then 2."""
+    text = _stage1_source()
+    c = V.SQRT_CHAIN
+    max_steps = int(re.search(r"constexpr int kChainMaxSteps = (\d+);", text).group(1))
+    max_entries = int(re.search(r"constexpr int kChainMaxEntries = (\d+);", text).group(1))
+    assert len(c.steps) <= max_steps and 1 <= c.entries <= max_entries
+    assert c.steps[0][0] == 0 and 1 <= c.steps[0][1] <= c.entries
+    assert all(0 <= sq < 256 and 0 <= idx <= c.entries for sq, idx in c.steps)
+    body = re.search(r"constexpr uint32_t kSqrtExp\[Fp::N\] = \{([^}]*)\}", text).group(1)
+    assert c.exponent() == sum(int(w.strip().rstrip("u"), 16) << (32 * k) for k, w in enumerate(body.split(",")))
+    code = c.to_bytes()
+    assert len(code) == 1 + 2 * len(c.steps) and code[0] == c.entries
+    assert lanes in V.DECOMPRESS_LANES
+    assert f"case {lanes}: return launch_decompress_lanes<{lanes}>" in text
+    widths = (128, 1024, 4224, 4225, 8192, 8448, 8449)
+    assert [V.decompress_lanes(n, 132) for n in widths] == [4, 4, 4, 2, 2, 2, 2]
+
+
 def test_stage1_wrappers_check_their_operands(rows):
     """Wrong types and shapes raise; on a tensor off the CPU the wrappers
     launch kernels A and B or raise, and never take the plain version (the
