@@ -33,8 +33,13 @@ Phases, any failure of which exits non-zero without the final line:
    at mainnet width, edge scalars and an infinity column included, M2 also
    on a table of repeated and negated points (P == Q, P == -Q, infinity)
    and at every (accumulators, block) of its sweep; the verify
-   path's small launchers at the widest shapes it gives them (the Fp
-   negation at stage 2's [66, 4096, 6] lanes);
+   path's small launchers at the shapes it gives them: the Fr difference
+   at a chunk's [4096, 64] and at [4096, 4096] in each of its rows-a-thread
+   variants, at [64] and a proof's [4096] - [1]; the blob ingest and check
+   at a chunk's [64, 4096, 32] and a prover blob's [4096, 32] on canonical
+   and planted non-canonical elements, and replayed from a CUDA graph on a
+   bad, a good and a bad chunk (its flag reset each replay); the Fp
+   negation at stage 2's [66, 4096, 6] lanes;
 2b. hold the engine against the golden model on this machine's CPU, exactly:
    SHA-256 against hashlib, the G1 and G2 codecs (invalid encodings
    included), G1 and G2 multiplies, the G1 lincomb, the pairing (true,
@@ -54,7 +59,9 @@ Phases, any failure of which exits non-zero without the final line:
    every lane held word for word (flags and ys of the packed fetch) against
    the full-width path; at n = 4096 the peak device memory under its cap,
    one replay of the barycentric graph against the same chunk launched
-   directly, the sweeps of both chunk widths (stage 1 in chunks held
+   directly, the device operations one replay runs by name
+   (torch.profiler; ``--replay-kernels`` measures them alone, also for an
+   older checkout), the sweeps of both chunk widths (stage 1 in chunks held
    against full width), one batch under torch.profiler (top device
    operations, the share of upload time beside a kernel), and a device
    batch beside the engine's threads verifying the same batch;
@@ -75,12 +82,17 @@ Phases, any failure of which exits non-zero without the final line:
    ``batch_launches`` counts, stage 1 being exactly kernel A, the
    window-base chain and kernel B a chunk (nothing else) and the
    barycentric evaluation its 48 launches at full width (the Fermat
-   inversion and x^4096 one each of the Fr chain, the domain sum one) or
-   one graph replay a chunk (48 kernels), and print the report lines and
-   the ``kernels`` JSON line.
+   inversion and x^4096 one each of the Fr chain, the domain sum and the
+   ingest one each, the Fr difference two) or one graph replay a chunk (48
+   kernels), the ingest once in a commit and a proof and the generic Fr
+   compare in no run, and print the report lines and the ``kernels`` JSON
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside this script, it exits 2 and prints no result.
+``--replay-kernels`` or ``--batches`` runs only the build and
+``replay_kernels`` or ``batches_alone``, for the package beside this
+script (a copy beside an older checkout measures that checkout).
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -95,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0x5EED
@@ -119,8 +132,10 @@ PEAK_MEM_CAP = 1_200_000_000
 # check are kernels A and B, which took the Fp compare, the Fp add and the
 # square root's Fp chain off the verify path: kzg_fp_cmp and
 # kzg_fp_pow_const run only in the MSM table's one-off build (its infinity
-# mask and batched inversion), kzg_fp_add in no path.
-OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp", "kzg_fp_add", "kzg_fp_pow_const"}
+# mask and batched inversion), kzg_fp_add in no path.  The blob ingest
+# (kzg_fr_ingest) checks the blobs' canonicality, so the generic Fr compare
+# runs in no path either.
+OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp", "kzg_fp_add", "kzg_fp_pow_const", "kzg_fr_cmp"}
 # Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64
 # (or gave it before stage 1 ran in kernels A and B, kept so that each
 # kernel's time stays comparable across PRs): K1 at stage 1's former width
@@ -143,12 +158,13 @@ OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp",
 # mixed add alone at M2's accumulator count.  The verify path's small
 # launchers at the widest shapes it gives them at n = 4096: the barycentric
 # differences (kzg_fr_sub, 4096 x 4096 from two broadcast [4096] operands),
-# the blobs' canonicality (kzg_fr_cmp over 4096 x 4096 elements), the
-# domain sum (kzg_fr_sum_rows, [4096, 4096] in one launch), and the Fp negation of stage
+# the domain sum (kzg_fr_sum_rows, [4096, 4096] in one launch), and the Fp negation of stage
 # 2's selected Y words (kzg_fp_sub, zero minus 66 windows x 4096 blobs x 6
 # lanes), stage 2 being the only stage that launches it; the barycentric
 # launchers and K2 also at the shapes one chunk gives them (4096 domain
-# rows x BARY_CHUNK_BLOBS blobs), which is where n = 4096 runs them now.
+# rows x BARY_CHUNK_BLOBS blobs), which is where n = 4096 runs them now;
+# the blob ingest at a chunk's bytes ([BARY_CHUNK_BLOBS, 4096, 32]) and a
+# prover blob's ([4096, 32]).
 SHAPES = {
     "fp": 8192,
     "fr": 262144,
@@ -437,6 +453,125 @@ def stage1_rows(prng) -> tuple[list[bytes], list[bytes], dict]:
             continue
         golden[row] = (True, pt, gc.g1_in_subgroup(pt))
     return adversarial, distinct, golden
+
+
+# Big-endian elements each ingest check plants, with where: r, r + 1, 2^255
+# and 2^256 - 1 in the middle of the input, and r alone in the last row of
+# the last blob.
+INGEST_BAD = ("r", "r+1", "2^255", "2^256-1", "last")
+
+
+def check_ingest(device, record, cold_ms) -> dict:
+    """kzg_fr_ingest at a chunk's [64, 4096, 32] and a prover blob's
+    [4096, 32], held word for word (words and flag) against its plain
+    version: on random canonical elements with 0 and r - 1 leading, and with
+    each bad element of INGEST_BAD planted alone.  Timed on the canonical
+    chunk: the kernel alone (``ms``, L2 cold) and the wrapper with its flag
+    fill (``wrapper_ms``).  Then one CUDA graph of the wrapper on a flag of
+    its own, replayed on a bad chunk, a good chunk and a bad chunk: the flag
+    reads False, True, False and the words equal the plain version's."""
+    import torch
+
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+    from kzg_rust_tpu_torch.golden.field import R
+    from kzg_rust_tpu_torch.ops import _build
+    from kzg_rust_tpu_torch.ops import limbs as L
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+
+    def canonical(shape):
+        x = torch.randint(0, 256, shape + (32,), dtype=torch.uint8, device=device, generator=gen)
+        x[..., 0] &= 0x3F  # below 2^254 < r
+        flat = x.view(-1, 32)
+        flat[0], flat[1] = be(0), be(R - 1)
+        return x
+
+    def be(v):
+        return torch.tensor(list(v.to_bytes(32, "big")), dtype=torch.uint8, device=device)
+
+    def planted(x, name):
+        y = x.clone()
+        flat = y.view(-1, 32)
+        values = {"r": R, "r+1": R + 1, "2^255": 1 << 255, "2^256-1": (1 << 256) - 1, "last": R}
+        flat[-1 if name == "last" else flat.shape[0] // 2 + 7] = be(values[name])
+        return y
+
+    def packed(fn):
+        def call(x):
+            words, ok = fn(x)
+            return torch.cat([words.reshape(-1), ok.reshape(1).to(torch.int32)])
+
+        return call
+
+    kernel, plain = packed(L.ingest_check), packed(L.ingest_check_plain)
+    rows = []
+    for shape in ((TB.BARY_CHUNK_BLOBS, SHAPES["fr_path"]), (SHAPES["fr_path"],)):
+        good = canonical(shape)
+        blobs, elems = (1,) + shape if len(shape) == 1 else shape
+        flag = torch.empty((), dtype=torch.uint8, device=device)
+
+        def launch_only(x, flag=flag, out_shape=shape[::-1] + (8,), blobs=blobs, elems=elems):
+            out = torch.empty(out_shape, dtype=torch.int32, device=device)
+            _build.launch("kzg_fr_ingest", device, x, out, flag, blobs, elems)
+            return out
+
+        nbytes = 2 * good.numel() + 1
+        row = record(
+            "kzg_fr_ingest",
+            kernel,
+            plain,
+            (good,),
+            "kzg_rust_tpu_torch/csrc/field_kernels.cu",
+            "kzg_rust_tpu/ops/verify_kernels.py:347 (blob_bytes_to_limbs) + kzg_rust_tpu/ops/limbs.py:292 (geq_mod), XLA ops",
+            nbytes,
+            good.numel() // 4,
+            50,
+            keep=False,
+            plain_reps=2,
+            timed=launch_only,
+        )
+        for name in INGEST_BAD:
+            bad = planted(good, name)
+            got, want = kernel(bad), plain(bad)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or bool(got[-1]):
+                raise AssertionError(f"kzg_fr_ingest at {list(good.shape)} with {name} planted: words or flag disagree with the plain version")
+        row["wrapper_ms"] = cold_ms(L.ingest_check, (good,), nbytes)
+        # What the card's own copy kernel takes to read and write the same
+        # bytes, timed as the row was.
+        row["copy_same_bytes_ms"] = cold_ms(lambda x: x.clone(), (good,), nbytes)
+        row["adversarial_equal"] = ["0", "r-1"] + list(INGEST_BAD)
+        log(f"kernel kzg_fr_ingest at {list(good.shape)}: words and flag equal to plain with each of {json.dumps(row['adversarial_equal'])}; the wrapper (flag fill and launch) {row['wrapper_ms']:.4f} ms, torch's copy of the same bytes {row['copy_same_bytes_ms']:.4f} ms, L2 cold")
+        rows.append(row)
+
+    # The flag across replays of one graph: bad, good, bad.
+    chunk = canonical((TB.BARY_CHUNK_BLOBS, SHAPES["fr_path"]))
+    bad = planted(chunk, "last")
+    buf, flag = torch.empty_like(chunk), torch.empty((), dtype=torch.uint8, device=device)
+    buf.copy_(chunk)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        L.ingest_check(buf, flag)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.capturing(), torch.cuda.graph(graph):
+        words, ok = L.ingest_check(buf, flag)
+    seen = []
+    for data in (bad, chunk, bad):
+        buf.copy_(data)
+        words.zero_()
+        graph.replay()
+        want_words, want_ok = L.ingest_check_plain(data)
+        torch.cuda.synchronize()
+        seen.append(bool(ok))
+        if not torch.equal(words, want_words) or bool(ok) != bool(want_ok):
+            raise AssertionError(f"kzg_fr_ingest: replay {len(seen)} of its CUDA graph disagrees with the plain version")
+    if seen != [False, True, False]:
+        raise AssertionError(f"kzg_fr_ingest: the flag read {seen} over bad, good, bad replays")
+    log("kernel kzg_fr_ingest: one CUDA graph on its own flag, replayed on a bad, a good and a bad chunk: ok False, True, False, words equal to plain")
+    rows[0].update(at_prover_blob=rows[1], graph_flag_replays=seen, kernels_line=True)
+    return rows[0]
 
 
 def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], list[dict]]:
@@ -1084,73 +1219,74 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         50,
     )
 
-    # The verify path's small launchers at n = 4096: the barycentric
-    # differences x - w_i of every blob and root (two broadcast operands, a
-    # 537 MB result), the blobs' canonicality over every element, and the
-    # domain sum over 4096 rows of 4096 terms in one launch (any order of a
-    # modular sum gives the same words).
+    # The verify path's small launchers.  kzg_fr_sub at every shape the path
+    # gives it: the barycentric differences x_b - w_i at a chunk's [4096, 64]
+    # (every n = 4096 launch since the evaluation runs in chunks, and
+    # n = 64's) and at full width [4096, 4096] (two broadcast operands, a
+    # 537 MB result), each in every rows-a-thread variant of the kernel
+    # (L.SUB_ROWS; the module's default is the path's), then x^n - 1 over a
+    # chunk's [64] and a proof's [4096] - [1] (w - z) and 0 - [4096] (the
+    # negated inverses).
     nb = SHAPES["fr_path"]
     xs = L.to_device(L.FR, random_field(rng, R, nb), device)
     roots = L.to_device(L.FR, random_field(rng, R, nb), device)
-    mod_r = L.FR.const("mod", device)
-    record(
-        "kzg_fr_sub",
-        lambda x, w: L.sub_mod(L.FR, x[None], w[:, None]),
-        lambda x, w: L.sub_mod_plain(L.FR, x[None], w[:, None]),
-        (xs, roots),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
-        2 * nb * 32 + nb * nb * 32,
-        nb * nb * 3 * 8,
-        20,
-        plain_reps=1,
+    xs[:3] = L.to_device(L.FR, [0, R - 1, 1], device)
+    roots[:3] = L.to_device(L.FR, [R - 1, 0, 1], device)
+    subs = {}
+    for label, cols in (("chunk", chunk), ("wide", nb)):
+        for rows_per_thread in L.SUB_ROWS:
+            row = record(
+                "kzg_fr_sub",
+                lambda x, w, k=rows_per_thread: L.fr_sub(x[None], w[:, None], k),
+                lambda x, w: L.sub_mod_plain(L.FR, x[None], w[:, None]),
+                (xs[:cols], roots),
+                fsrc,
+                "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
+                (cols + nb) * 32 + nb * cols * 32,
+                nb * cols * 3 * 8,
+                50 if label == "chunk" else 20,
+                keep=False,
+                plain_reps=1,
+            )
+            row.update(rows_per_thread=rows_per_thread, view=[nb, cols])
+            subs[(label, rows_per_thread)] = row
+        sweep = {k: subs[(label, k)]["ms"] for k in L.SUB_ROWS}
+        # What the card's own fill kernel takes to write the same bytes (the
+        # difference's bytes are its writes), timed as the row was.
+        target = torch.empty((nb, cols, 8), dtype=torch.int32, device=device)
+        nbytes = target.numel() * 4
+        fill = lambda o: o.fill_(0)  # noqa: E731
+        fill_ms = cold_graph_ms(fill, (target,), nbytes, l2_bytes, 20) if nbytes < 2 * l2_bytes else graph_ms(lambda: fill(target), 20)
+        subs[(label, L.SUB_ROWS_DEFAULT)]["fill_same_bytes_ms"] = fill_ms
+        del target
+        log(
+            f"kernel kzg_fr_sub at [{nb}, {cols}]: rows a thread -> ms {json.dumps(sweep)}; fastest {min(sweep, key=sweep.get)}, "
+            f"the module's {L.SUB_ROWS_DEFAULT}; torch's fill of the same {nbytes} bytes {fill_ms:.4f} ms"
+        )
+    one, zero = L.FR.const("one_mont", device), L.FR.const("zero", device)
+    narrow = {}
+    for label, fn, plain, args in (
+        ("xn_minus_1", lambda x: L.sub_mod(L.FR, x, one), lambda x: L.sub_mod_plain(L.FR, x, one), (xs[:chunk],)),
+        ("proof_w_minus_z", lambda w, z: L.sub_mod(L.FR, w, z[None]), lambda w, z: L.sub_mod_plain(L.FR, w, z[None]), (roots, xs[5])),
+        ("proof_neg", lambda v: L.neg_mod(L.FR, v), lambda v: L.sub_mod_plain(L.FR, zero, v), (roots,)),
+    ):
+        n = args[0].shape[0]
+        narrow[label] = record(
+            "kzg_fr_sub", fn, plain, args, fsrc, "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)", 2 * n * 32 + 32, n * 3 * 8, 50, keep=False
+        )
+    sub_row = subs[("chunk", L.SUB_ROWS_DEFAULT)]
+    sub_row.update(
+        at_full_width=subs[("wide", L.SUB_ROWS_DEFAULT)],
+        rows_per_thread_ms={label: {k: subs[(label, k)]["ms"] for k in L.SUB_ROWS} for label in ("chunk", "wide")},
+        kernels_line=True,
+        **{f"at_{k}": v for k, v in narrow.items()},
     )
-    wide = torch.randint(-(1 << 31), 1 << 31, (nb * nb, 8), dtype=torch.int32, device=device, generator=gen)
-    wide[:, 7] &= 0x7FFFFFFF  # below 2^255: about half of them at or above r
-    record(
-        "kzg_fr_cmp",
-        lambda x: L.geq_mod(L.FR, x).to(torch.int32),
-        lambda x: L.cmp_plain(x, mod_r, 1).to(torch.int32),
-        (wide,),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:299 (geq_const, an XLA op)",
-        nb * nb * (32 + 1),
-        nb * nb * 8,
-        20,
-        plain_reps=1,
-    )
-    rows3 = wide.reshape(nb, nb, 8)
-    rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
-    record(
-        "kzg_fr_sum_rows",
-        lambda x, t=L.sum_tickets(rows3.shape[1], device): L.sum_mod(L.FR, x, t),
-        lambda x: L.sum_mod_plain(L.FR, x),
-        (rows3,),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
-        nb * nb * 32 + nb * 32,
-        nb * nb * 8,
-        20,
-        plain_reps=1,
-    )
-    del wide, rows3
-    # The same launchers, and K2, at the shapes one barycentric chunk gives
-    # them (nb domain rows x chunk blobs), the shapes of every n = 4096
-    # launch since the evaluation runs in chunks.
-    record(
-        "kzg_fr_sub",
-        lambda x, w: L.sub_mod(L.FR, x[None], w[:, None]),
-        lambda x, w: L.sub_mod_plain(L.FR, x[None], w[:, None]),
-        (xs[:chunk], roots),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:264 (sub_mod, an XLA op)",
-        (chunk + nb) * 32 + nb * chunk * 32,
-        nb * chunk * 3 * 8,
-        50,
-        plain_reps=1,
-    )
+    rows.append(sub_row)
+    # The generic Fr compare, off the path since the ingest checks the
+    # blobs: at the size of the words one chunk's ingest checks.
     wide = torch.randint(-(1 << 31), 1 << 31, (nb * chunk, 8), dtype=torch.int32, device=device, generator=gen)
     wide[:, 7] &= 0x7FFFFFFF  # below 2^255: about half of them at or above r
+    mod_r = L.FR.const("mod", device)
     record(
         "kzg_fr_cmp",
         lambda x: L.geq_mod(L.FR, x).to(torch.int32),
@@ -1163,20 +1299,24 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         50,
         plain_reps=1,
     )
-    rows3 = wide.reshape(nb, chunk, 8)
-    rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
-    record(
-        "kzg_fr_sum_rows",
-        lambda x, t=L.sum_tickets(rows3.shape[1], device): L.sum_mod(L.FR, x, t),
-        lambda x: L.sum_mod_plain(L.FR, x),
-        (rows3,),
-        fsrc,
-        "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
-        nb * chunk * 32 + chunk * 32,
-        nb * chunk * 8,
-        50,
-        plain_reps=1,
-    )
+    rows.append(check_ingest(device, record, cold_ms=lambda fn, args, nbytes: cold_graph_ms(fn, args, nbytes, l2_bytes, 50)))
+    # The domain sum at full width and at a chunk (any order of a modular
+    # sum gives the same words), and K2 at a chunk's terms.
+    for cols in (nb, chunk):
+        rows3 = torch.randint(-(1 << 31), 1 << 31, (nb, cols, 8), dtype=torch.int32, device=device, generator=gen)
+        rows3[..., 7] &= 0x3FFFFFFF  # below 2^254 < r: canonical terms
+        record(
+            "kzg_fr_sum_rows",
+            lambda x, t=L.sum_tickets(cols, device): L.sum_mod(L.FR, x, t),
+            lambda x: L.sum_mod_plain(L.FR, x),
+            (rows3,),
+            fsrc,
+            "kzg_rust_tpu/ops/limbs.py:482 (sum_mont_redc, an XLA op)",
+            nb * cols * 32 + cols * 32,
+            nb * cols * 8,
+            20 if cols == nb else 50,
+            plain_reps=1,
+        )
     products["fr"].append(product_row(L.FR, rows3.reshape(-1, 8), rows3.reshape(-1, 8).roll(1, 0).contiguous()))
     del wide, rows3
     # kzg_fp_sub at stage 2's widest launch: the negated Y words of the
@@ -1370,6 +1510,51 @@ def out_of_subgroup_compressed(rng) -> bytes:
             return gc.g1_compress((x, y))
 
 
+def valid_triples() -> list:
+    """(blob, commitment, proof) of the six correct-proof
+    verify_blob_kzg_proof vectors."""
+    from kzg_rust_tpu_torch import Blob, Bytes48
+
+    triples = []
+    for f in sorted(glob.glob(os.path.join(ROOT, "tests", "vectors", "verify_blob_kzg_proof", "*", "*correct_proof_*", "data.yaml"))):
+        if "incorrect" in f:
+            continue
+        inp, expected = read_vector(f)
+        if expected is not True:
+            raise AssertionError(f"{f}: a correct-proof vector that does not verify")
+        triples.append((Blob.from_hex(inp["blob"]), Bytes48.from_hex(inp["commitment"]), Bytes48.from_hex(inp["proof"])))
+    if len(triples) != 6:
+        raise AssertionError(f"expected 6 valid triples, found {len(triples)}")
+    return triples
+
+
+def batches_alone(reps: int = 5) -> dict:
+    """The valid batch of each n of BATCH_SIZES (sampled as main_path
+    samples them) through ``TorchBackend(time_stages=True)`` on the mainnet
+    setup, nothing else: one warm-up batch, then timed_batches over
+    ``reps``.  It needs only the package's public calls, so
+    ``--batches`` runs it against an older checkout too, in turns with
+    this one."""
+    import numpy as np
+
+    from kzg_rust_tpu_torch import Kzg
+    from kzg_rust_tpu_torch.backends.torch_backend import TorchBackend
+
+    settings = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup.txt"))
+    backend = TorchBackend(time_stages=True)
+    triples = valid_triples()
+    nrng = np.random.default_rng(SEED)
+    out = {}
+    for n in BATCH_SIZES:
+        pick = nrng.integers(0, len(triples), size=n)
+        args = tuple([triples[i][k] for i in pick] for k in range(3))
+        Kzg.verify_blob_kzg_proof_batch(*args, settings, backend)
+        out[n] = timed_batches(backend, settings, args, reps=reps)
+        out[n]["blobs_per_s"] = n / out[n]["e2e_ms"] * 1e3
+        log(f"batches: n={n}: {out[n]['e2e_ms']:.2f} ms median of {reps} ({out[n]['blobs_per_s']:.1f} blobs/s), runs {json.dumps(out[n]['e2e_runs_ms'])}")
+    return out
+
+
 def main_path(backend, settings, host: bool = False) -> dict:
     """The verify path on ``backend``: on the card, or with ``host`` in the
     engine's fused context (``KZG_TORCH_EVAL=host`` set by the caller),
@@ -1414,18 +1599,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
             raise AssertionError(f"{f}: got {got}, expected {expected}")
     log(f"{where}: all {len(files)} mainnet verify_blob_kzg_proof_batch vectors pass")
 
-    # Valid triples: the six correct-proof verify_blob_kzg_proof vectors.
-    triples = []
-    for f in sorted(glob.glob(os.path.join(vec, "verify_blob_kzg_proof", "*", "*correct_proof_*", "data.yaml"))):
-        if "incorrect" in f:
-            continue
-        inp, expected = read_vector(f)
-        if expected is not True:
-            raise AssertionError(f"{f}: a correct-proof vector that does not verify")
-        triples.append((Blob.from_hex(inp["blob"]), Bytes48.from_hex(inp["commitment"]), Bytes48.from_hex(inp["proof"])))
-    if len(triples) != 6:
-        raise AssertionError(f"expected 6 valid triples, found {len(triples)}")
-
+    triples = valid_triples()
     nrng = np.random.default_rng(SEED)
     prng = random.Random(SEED)
     sub_point = Bytes48(out_of_subgroup_compressed(prng))
@@ -1542,6 +1716,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
             if report["peak_reserved_bytes"][n] > PEAK_MEM_CAP:
                 raise AssertionError(f"n={n}: peak reserved device memory {report['peak_reserved_bytes'][n]} above the cap {PEAK_MEM_CAP}")
             report["replay_equals_direct"] = replay_equals_direct(backend, settings, blobs, cs)
+            report["replay_kernels"] = replay_kernels()
             report["staging_alone"] = staging_alone(backend, settings, blobs)
             report["sweeps"] = width_sweeps(backend, settings, (blobs, cs, ps))
             report["trace"] = profile_batch(backend, settings, (blobs, cs, ps))
@@ -1779,6 +1954,67 @@ def width_sweeps(backend, settings, args, rounds: int = 3) -> dict:
             f"sweep: n={len(blobs)}: {part} chunk width -> median of {rounds} rounds, the widths in turn (host clock e2e, CUDA-event "
             f"stages; a bary width's replay alone, median of 10, and times the chunks): {json.dumps(summary)}; best {best}, the module's {widths[part == 'stage1']}"
         )
+    return out
+
+
+def replay_kernels(reps: int = 3) -> dict:
+    """One barycentric chunk graph (``_BaryChunks``, BARY_CHUNK_BLOBS
+    random canonical mainnet blobs, made on the card from SEED) replayed
+    ``reps`` times under torch.profiler: every device operation a replay
+    runs, by name (count a replay, mean microseconds), and their total,
+    beside the port's own launches in the graph (``Graph.kernels``) and the
+    replay's time (CUDA events, median of 10).  It needs only what the
+    package has had since its chunked pipeline, so ``--replay-kernels``
+    runs it against an older checkout too."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kzg_rust_tpu_torch.backends import torch_backend as TB
+    from kzg_rust_tpu_torch.golden.field import R
+    from kzg_rust_tpu_torch.ops import limbs as L
+    from kzg_rust_tpu_torch.ops import protocol_kernels as PK
+    from kzg_rust_tpu_torch.presets import MAINNET
+    from kzg_rust_tpu_torch.utils.domain import compute_roots_of_unity
+
+    device = torch.device("cuda", 0)
+    fe = MAINNET.field_elements_per_blob
+    settings = types.SimpleNamespace(preset=MAINNET, roots_of_unity=compute_roots_of_unity(fe.bit_length() - 1))
+    width = TB.BARY_CHUNK_BLOBS
+    pipe = TB._BaryChunks(PK.FrContext.build(settings, device), device, width, fe)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    pipe.blob_in.copy_(torch.randint(0, 256, tuple(pipe.blob_in.shape), dtype=torch.uint8, device=device, generator=gen))
+    pipe.blob_in[..., 0] &= 0x3F  # below 2^254 < r
+    pipe.xs_in.copy_(L.to_device(L.FR, random_field(np.random.default_rng(SEED), R, width), device))
+    pipe.graph.replay()
+    torch.cuda.synchronize()
+    if not bool(pipe.graph.outputs[1]):
+        raise AssertionError("replay_kernels: canonical blobs read as not canonical")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            pipe.graph.graph.replay()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "trace_replay.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    by_name = {}
+    for e in events:
+        count, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (count + 1, us + e["dur"])
+    out = {
+        "width": width,
+        "device_ops_a_replay": len(events) / reps,
+        "by_name": {k: {"a_replay": c / reps, "mean_us": us / c} for k, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])},
+        "port_launches_a_replay": sum(pipe.graph.kernels.values()),
+        "replay_ms": cuda_ms(pipe.graph.graph.replay, 10),
+    }
+    log(
+        f"replay: one barycentric graph at {width} blobs runs {out['device_ops_a_replay']:g} device operations (torch.profiler, {reps} replays), "
+        f"{out['port_launches_a_replay']} of them the port's launches; replay {out['replay_ms']:.4f} ms (CUDA events, median of 10); "
+        f"by name: {json.dumps(out['by_name'])}"
+    )
     return out
 
 
@@ -2201,6 +2437,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "kzg_rust_tpu_torch", "csrc")):
         print("chip_smoke: the kzg_rust_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
+    if sys.argv[1:] not in ([], ["--replay-kernels"], ["--batches"]):
+        print("usage: python3 chip_smoke.py [--replay-kernels | --batches]", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     # Everything the run writes stays inside the checkout.
     os.environ.setdefault("KZG_TORCH_CACHE_DIR", os.path.join(ROOT, "build", "setup_cache"))
@@ -2210,6 +2449,19 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:]:
+        # The barycentric graph's device operations alone (replay_kernels),
+        # or the valid batches alone (batches_alone), for the package beside
+        # this script: a copy of this script beside an older checkout's
+        # package measures that package.
+        _build.build()
+        card = nvidia_smi("name,power.limit")
+        log(card)
+        if sys.argv[1] == "--replay-kernels":
+            log(json.dumps({"replay_kernels": replay_kernels(), "card": card}))
+        else:
+            log(json.dumps({"batches": batches_alone(), "card": card}))
+        return 0
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -2294,8 +2546,16 @@ def main() -> int:
     # evaluation, launched directly at full width and one replay a chunk in
     # the chunked regime, where no barycentric kernel launches directly.
     for name, kernels in graphs.items():
-        if sum(kernels.values()) != BARY_LAUNCHES or kernels.get("kzg_fr_sum_rows") != 1:
-            raise AssertionError(f"graph {name}: a replay runs {json.dumps(kernels)}, expected {BARY_LAUNCHES} kernels, one domain sum")
+        if sum(kernels.values()) != BARY_LAUNCHES or kernels.get("kzg_fr_sum_rows") != 1 or kernels.get("kzg_fr_ingest") != 1 or kernels.get("kzg_fr_sub") != 2:
+            raise AssertionError(f"graph {name}: a replay runs {json.dumps(kernels)}, expected {BARY_LAUNCHES} kernels, one domain sum, one ingest, two Fr subs")
+    # The blobs are ingested and checked by kzg_fr_ingest, once a barycentric
+    # evaluation (at full width or a replay), a commit and a proof; the
+    # generic Fr compare runs in none of them.
+    ingests = {name: counts["kzg_fr_ingest"] for name, counts in runs.items()}
+    if ingests != {f"n{small}": 1, "commit": 1, "proof": 1} or any(
+        per_kernel(counts)["kzg_fr_cmp"] for counts in list(runs.values()) + list(report["launches"].values())
+    ):
+        raise AssertionError(f"ingest launches {ingests}, expected one each; or kzg_fr_cmp launched on the path")
     for n in BATCH_SIZES:
         parts = batch_launches(npad_of(n))
         counts = report["launches"][n]
@@ -2319,7 +2579,7 @@ def main() -> int:
         json.dumps(
             {
                 k: report[k]
-                for k in ("stage_ms", "host_ms", "e2e_ms", "blobs_per_s", "peak_mem_bytes", "peak_reserved_bytes", "replay_equals_direct", "staging_alone", "trace")
+                for k in ("stage_ms", "host_ms", "e2e_ms", "blobs_per_s", "peak_mem_bytes", "peak_reserved_bytes", "replay_equals_direct", "replay_kernels", "staging_alone", "trace")
             }
             | {"sweeps": {part: {str(w): r for w, r in runs_.items()} for part, runs_ in report["sweeps"].items()}, "card": card}
         )

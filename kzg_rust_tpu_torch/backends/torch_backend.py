@@ -177,8 +177,9 @@ class _BaryChunks:
     input ``blob_in`` on the current stream (which waits on the upload's
     event), zeroes the pad rows there, puts the chunk's xs into ``xs_in``
     and replays one CUDA graph of ``bary_batch_from_bytes(ctx, blob_in,
-    xs_in, tickets)``, captured once (``tickets``, its domain sum's, are
-    this object's alone); it returns the graph's static (ys, ok), which
+    xs_in, tickets, flag)``, captured once (``tickets``, its domain sum's,
+    and ``flag``, its ingest's ok byte, are this object's alone); it
+    returns the graph's static (ys, ok), which
     the caller copies out before the next run.  So chunk k + 1's upload runs
     while the card evaluates chunk k.  The copy stream waits on a landing
     buffer's last read before it overwrites it.
@@ -207,8 +208,11 @@ class _BaryChunks:
         self.uploaded = [torch.cuda.Event() for _ in range(2)]
         self.consumed = [torch.cuda.Event() for _ in range(2)]
         self.tickets = L.sum_tickets(width, device)  # the graph's domain sum's, its own
+        self.flag = torch.empty((), dtype=torch.uint8, device=device)  # the graph's ingest's, set each replay
         self.graph = _build.Graph(
-            "graph:bary_chunk", lambda: V.bary_batch_from_bytes(ctx, self.blob_in, self.xs_in, self.tickets), device
+            "graph:bary_chunk",
+            lambda: V.bary_batch_from_bytes(ctx, self.blob_in, self.xs_in, self.tickets, self.flag),
+            device,
         )
 
     def wait(self, k: int) -> None:

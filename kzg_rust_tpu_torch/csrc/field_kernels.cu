@@ -1,8 +1,8 @@
 // Field kernels for Hopper (sm_90a): the Fp and Fr Montgomery products (K1,
 // K2), their constant-exponent chains (a^e for a host constant e, one launch
 // per chain), and the small elementwise launchers that share their device
-// functions (modular add and sub, compare, and the modular sum along a
-// leading axis).
+// functions (modular add and sub, compare, the blob ingest, and the modular
+// sum along a leading axis).
 //
 // K1 replaces kzg_rust_tpu/ops/pallas_kernels.py:248 mont_mul_fp_pallas and
 // K2 replaces :252 mont_mul_fr_pallas (one factory, _make_mont_mul :202).
@@ -46,12 +46,44 @@
 // Toeplitz REDC on the MXU, roll-and-mask shifts, carry lookahead) answer a
 // machine without a 32-bit multiplier and are not carried over.
 //
+// The blob ingest, kzg_fr_ingest, replaces the JAX package's
+// ops/verify_kernels.py:347 blob_bytes_to_limbs and ops/limbs.py:292
+// geq_mod with its any() (one XLA program there, one launch here): big-endian
+// blob bytes [B, n, 32] in, little-endian Fr words [n, B, 8] out (the
+// barycentric evaluation's domain-major layout; a prover blob is B = 1), and
+// one byte that the kernel clears where an element is >= r.  It is bound by
+// bytes (32 in and 32 out an element; 16.8 MB at a 64-blob chunk, 0.0050 ms
+// at 3.35 TB/s).  One thread an element, two 16-byte loads and two 16-byte
+// stores: an element is one 32-byte sector each way, so every sector moves
+// whole whichever side is strided, and the transpose needs no shared memory.
+// Neighbouring threads write neighbouring output elements.  The byte swap is
+// one PRMT a word, the compare with r runs in registers, and a warp votes:
+// a warp with a bad element stores 0 into the ok byte, which the wrapper set
+// to 1 before the launch (every store writes the same value, so no atomic;
+// the byte is the bool, so no torch op reads it).  Before this kernel the
+// port ran the ingest as about 15 torch kernels over the chunk and the
+// compare as kzg_fr_cmp over the words.
+//
+// The Fr difference, kzg_fr_sub, replaces the XLA op of the JAX package's
+// ops/limbs.py:264 sub_mod at the path's broadcasts (the barycentric
+// differences x_b - w_i, [1, B] - [n, 1]; a proof's [n] - [1]).  It is
+// bound by the bytes it writes (8.4 MB from 130 KB at [4096, 64], 0.0025
+// ms).  Its operands come as a 2-D view with a row and a column stride each
+// (0 for a broadcast; ops/limbs.py sub_view), so it divides nothing at run
+// time; a thread takes one column and R consecutive rows, loads an operand
+// that is constant along the rows once, and stores each element with two
+// 16-byte stores, neighbouring threads on neighbouring columns.
+//
+// So the generic compare (kzg_fr_cmp, ops/limbs.py eq and geq_const) and
+// binary_kernel's Fr sub are off the main path; binary_kernel keeps K1, K2,
+// the adds and the Fp sub (stage 2's negations).
+//
 // Operand indexing of the binary launchers: element i of the output reads
 // element (i / div) % mod of each input, which covers a full operand (div 1,
 // mod n), a broadcast scalar (mod 1) and a broadcast row or column of a 2-D
 // batch, so callers never materialise a broadcast copy.  Operands and
-// outputs of the binary launchers and the chains start on 16 bytes: the
-// Python wrappers (ops/limbs.py _check_aligned) raise otherwise.
+// outputs of every launcher start on 16 bytes: the Python wrappers
+// (ops/limbs.py _check_aligned) raise otherwise.
 //
 // C interface: every entry point launches on the given stream and returns
 // cudaGetLastError(), which the Python wrapper turns into an exception.
@@ -150,6 +182,79 @@ __global__ void __launch_bounds__(kThreads) cmp_kernel(
     }
   }
   out[i] = mode == 0 ? (uint8_t)eq : (uint8_t)ge;
+}
+
+// out [rows, cols] = a - b mod r, operand element (r, c) at r rs + c cs of
+// its base (strides in elements, 0 along a broadcast).  Two threads an
+// element: thread x of a block row takes column (blockIdx.x blockDim.x + x)
+// / 2 and stores half x % 2 of each of its elements, so a warp's store is
+// 16 whole elements, 512 contiguous bytes (one thread an element stored a
+// warp's 32 elements as two halves, each touching 32 sectors in part).  Both
+// threads of a pair load the whole operands (the same addresses, one
+// request) and compute the whole difference.  Block row y takes the R rows
+// from R g of each row group g = blockIdx.y blockDim.y + y, blockDim.y
+// gridDim.y groups apart.  An operand with row stride 0 is loaded once a
+// thread; one with column stride 0 is the same for a warp (one broadcast).
+template <int R>
+__global__ void __launch_bounds__(kThreads) fr_sub_kernel(
+    const uint4* __restrict__ a, const uint4* __restrict__ b, uint4* __restrict__ out, uint32_t rows,
+    uint32_t cols, uint32_t a_rs, uint32_t a_cs, uint32_t b_rs, uint32_t b_cs) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x, c = t >> 1, h = t & 1;
+  if (c >= cols) return;
+  const uint32_t groups = (rows + R - 1) / R;
+  uint32_t x[8], y[8], d[8];
+  if (a_rs == 0) load_vec<8>(x, a + (size_t)c * a_cs * 2);
+  if (b_rs == 0) load_vec<8>(y, b + (size_t)c * b_cs * 2);
+  for (uint32_t g = blockIdx.y * blockDim.y + threadIdx.y; g < groups; g += gridDim.y * blockDim.y) {
+#pragma unroll
+    for (int k = 0; k < R; k++) {
+      const uint32_t r = g * R + k;
+      if (r < rows) {
+        if (a_rs) load_vec<8>(x, a + ((size_t)r * a_rs + (size_t)c * a_cs) * 2);
+        if (b_rs) load_vec<8>(y, b + ((size_t)r * b_rs + (size_t)c * b_cs) * 2);
+        fr_sub(d, x, y);
+        out[((size_t)r * cols + c) * 2 + h] =
+            h ? make_uint4(d[4], d[5], d[6], d[7]) : make_uint4(d[0], d[1], d[2], d[3]);
+      }
+    }
+  }
+}
+
+// Blob bytes in [B, n, 32] (big-endian elements) -> out [n, B, 8] words;
+// *ok = 0 where some element is >= r.  Two threads an element: thread 2o +
+// h takes half h (words 4h .. 4h + 3) of output element o = (i, b) =
+// (o / B, o % B), which is input half 1 - h of element (b, i) byte-swapped
+// and in reverse word order, so a pair loads one 32-byte sector and a warp
+// stores 512 contiguous bytes.  Each thread compares its half with r's; one
+// shuffle gives each the pair's other half, the high half deciding unless
+// equal.  No thread returns before the shuffle and the vote, and a block is
+// whole warps, so every lane of a warp reaches them.
+__global__ void __launch_bounds__(kThreads) fr_ingest_kernel(
+    const uint4* __restrict__ in, uint4* __restrict__ out, uint8_t* __restrict__ ok, uint32_t blobs,
+    uint32_t elems, uint32_t total) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x, o = t >> 1, h = t & 1;
+  uint32_t flags = 0;  // bit 1: this half > r's, bit 0: equal
+  if (o < total) {
+    const uint32_t i = o / blobs, b = o - i * blobs;
+    const uint4 w = __ldg(in + ((size_t)b * elems + i) * 2 + (1 - h));
+    const uint32_t v[4] = {__byte_perm(w.w, 0, 0x0123), __byte_perm(w.z, 0, 0x0123),
+                           __byte_perm(w.y, 0, 0x0123), __byte_perm(w.x, 0, 0x0123)};
+    bool eq = true, gt = false;
+#pragma unroll
+    for (int j = 3; j >= 0; j--) {  // the most significant word that differs from r's decides
+      const uint32_t m = h ? Fr::mod(4 + j) : Fr::mod(j);
+      if (eq && v[j] != m) {
+        gt = v[j] > m;
+        eq = false;
+      }
+    }
+    flags = (gt ? 2u : 0u) | (eq ? 1u : 0u);
+    out[(size_t)o * 2 + h] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, flags, 1);
+  const uint32_t hi = h ? flags : other, lo = h ? other : flags;
+  const bool bad = o < total && ((hi & 2u) || ((hi & 1u) && lo != 0));
+  if (__any_sync(0xffffffffu, bad) && (threadIdx.x & 31) == 0) *ok = 0;
 }
 
 // The domain sum, x [k, inner, 8] Fr words (each < r) -> out [inner, 8],
@@ -373,7 +478,6 @@ BINARY_ENTRY(kzg_fr_mont_mul, Fr, kMul)  // K2
 BINARY_ENTRY(kzg_fp_add, Fp, kAdd)
 BINARY_ENTRY(kzg_fp_sub, Fp, kSub)
 BINARY_ENTRY(kzg_fr_add, Fr, kAdd)
-BINARY_ENTRY(kzg_fr_sub, Fr, kSub)
 
 #define POW_ENTRY(name, F)                                                                 \
   extern "C" int name(const void* a, void* out, long long n, const void* digits,          \
@@ -394,6 +498,46 @@ extern "C" int kzg_fr_cmp(const void* a, const void* b, void* out, long long n, 
                           long long a_mod, long long b_div, long long b_mod, int mode,
                           void* stream) {
   return launch_cmp<8>(a, b, out, n, a_div, a_mod, b_div, b_mod, mode, stream);
+}
+
+// out [rows, cols] = a - b mod r over strided operands (ops/limbs.py
+// sub_view), `rows_per_thread` (1, 2, 4 or 8) rows a thread.  Blocks of TX
+// threads (TX / 2 columns) by 256 / TX row groups, TX the power of two from
+// 32 to 256 that covers 2 cols; the row groups beyond 65,535 blocks loop.
+extern "C" int kzg_fr_sub(const void* a, const void* b, void* out, long long rows, long long cols,
+                          long long a_rs, long long a_cs, long long b_rs, long long b_cs,
+                          long long rows_per_thread, void* stream) {
+  if (rows < 1 || cols < 1 || rows * cols >= (1LL << 31) || cols >= (1LL << 30) || a_rs < 0 || a_cs < 0 || b_rs < 0 ||
+      b_cs < 0 || a_rs >= (1LL << 31) || a_cs >= (1LL << 31) || b_rs >= (1LL << 31) || b_cs >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  unsigned tx = 32;
+  while (tx < kThreads && tx < 2 * cols) tx *= 2;
+  const unsigned ty = kThreads / tx;
+  const long long groups = (rows + rows_per_thread - 1) / rows_per_thread;
+  const long long gy = (groups + ty - 1) / ty;
+  const dim3 grid((unsigned)((2 * cols + tx - 1) / tx), (unsigned)(gy < 65535 ? gy : 65535));
+  const cudaStream_t s = (cudaStream_t)stream;
+#define SUB_CASE(R)                                                                           \
+  if (rows_per_thread == R) {                                                                 \
+    fr_sub_kernel<R><<<grid, dim3(tx, ty), 0, s>>>((const uint4*)a, (const uint4*)b, (uint4*)out, \
+                                                  (uint32_t)rows, (uint32_t)cols, (uint32_t)a_rs, \
+                                                  (uint32_t)a_cs, (uint32_t)b_rs, (uint32_t)b_cs); \
+    return (int)cudaGetLastError();                                                           \
+  }
+  SUB_CASE(1) SUB_CASE(2) SUB_CASE(4) SUB_CASE(8)
+#undef SUB_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The blob ingest: bytes [blobs, elems, 32] -> out [elems, blobs, 8] words
+// and ok (one byte, 1 on entry) cleared where an element is >= r.
+extern "C" int kzg_fr_ingest(const void* in, void* out, void* ok, long long blobs, long long elems,
+                             void* stream) {
+  if (blobs < 1 || elems < 1 || blobs * elems >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const uint32_t total = (uint32_t)(blobs * elems);
+  fr_ingest_kernel<<<(unsigned)((2LL * total + kThreads - 1) / kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)in, (uint4*)out, (uint8_t*)ok, (uint32_t)blobs, (uint32_t)elems, total);
+  return (int)cudaGetLastError();
 }
 
 // The domain sum: x [k, inner, 8] -> out [inner, 8]; partials [row_blocks,

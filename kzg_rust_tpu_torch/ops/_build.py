@@ -53,9 +53,10 @@ ENTRY_POINTS = {
     "kzg_fp_add": ("field_kernels.cu", _BINARY),
     "kzg_fp_sub": ("field_kernels.cu", _BINARY),
     "kzg_fr_add": ("field_kernels.cu", _BINARY),
-    "kzg_fr_sub": ("field_kernels.cu", _BINARY),
+    "kzg_fr_sub": ("field_kernels.cu", [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
     "kzg_fp_cmp": ("field_kernels.cu", _CMP),
     "kzg_fr_cmp": ("field_kernels.cu", _CMP),
+    "kzg_fr_ingest": ("field_kernels.cu", [_P, _P, _P, _I64, _I64, _P]),
     "kzg_fr_sum_rows": ("field_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]),
     "kzg_fp_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),
     "kzg_fr_pow_const": ("field_kernels.cu", [_P, _P, _I64, _P, _I64, _P]),

@@ -14,9 +14,9 @@ On a CUDA tensor each arithmetic function launches its hand-written kernel
 ``pallas_kernels.py:248`` ``mont_mul_fp_pallas``, K2 ``kzg_fr_mont_mul``
 replaces ``:252`` ``mont_mul_fr_pallas``; a constant-exponent chain of their
 products is one launch of ``kzg_fp_pow_const`` or ``kzg_fr_pow_const``;
-modular add, sub, compare and the domain sum are small launchers on the same
-device functions) or raises.  On a CPU tensor it runs the kernel's plain
-PyTorch version, ``*_plain`` below.
+modular add, sub, compare, the blob ingest and the domain sum are small
+launchers on the same device functions) or raises.  On a CPU tensor it runs
+the kernel's plain PyTorch version, ``*_plain`` below.
 PyTorch has no usable uint32 arithmetic, so the plain versions work in
 int64 on 16-bit half-words (24 for Fp, 16 for Fr): a column of half-word
 products stays below 2^37, and carries are resolved by repeated
@@ -139,8 +139,7 @@ def to_device(spec: FieldSpec, values, device) -> torch.Tensor:
 
 def bytes_be_to_words(by: torch.Tensor) -> torch.Tensor:
     """[..., 4k] uint8 big-endian integers -> [..., k] int32 little-endian
-    words, with torch ops on the tensor's own device (blob ingest runs on
-    the card: the host uploads raw bytes)."""
+    words, with torch ops on the tensor's own device."""
     x = by.contiguous().view(torch.int32)  # bytes b0..b3 read little-endian
     x = ((x >> 24) & 0xFF) | ((x >> 8) & 0xFF00) | ((x & 0xFF00) << 8) | (x << 24)
     return x.flip(-1)
@@ -237,6 +236,14 @@ def cmp_plain(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
     return top == 0
 
 
+def ingest_check_plain(blob_bytes: torch.Tensor):
+    """Plain version of ``kzg_fr_ingest`` (:func:`ingest_check`): the blob
+    bytes through :func:`bytes_be_to_words` (domain-major for [B, n, 32]),
+    then ``any(words >= r)``."""
+    words = bytes_be_to_words(blob_bytes.transpose(0, 1) if blob_bytes.dim() == 3 else blob_bytes)
+    return words, ~cmp_plain(words, FR.const("mod", words.device), 1).any()
+
+
 def sum_mod_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """Modular sum along axis 0 as a halving tree of plain adds."""
     while x.shape[0] > 1:
@@ -313,10 +320,67 @@ def add_mod(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def sub_mod(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod N (operands broadcast): on the card :func:`fr_sub` for Fr,
+    ``kzg_fp_sub`` for Fp."""
     _check(spec, a, b)
     if a.device.type == "cpu":
         return sub_mod_plain(spec, a, b)
+    if spec is FR:
+        return fr_sub(a, b)
     return _launch_binary(spec.kernels["sub"], spec, a, b, torch.int32, (spec.nwords,))
+
+
+SUB_ROWS = (1, 2, 4, 8)  # the Fr difference's rows a thread: the kernel's variants
+SUB_ROWS_DEFAULT = 2
+
+
+def sub_view(a: torch.Tensor, b: torch.Tensor):
+    """The Fr difference's view of ``a - b`` (word tensors, broadcast):
+    (shape, rows, cols, a_rs, a_cs, b_rs, b_cs), the output's shape and its
+    elements as [rows, cols], operand element (r, c) at r rs + c cs
+    elements from its start (0 along a broadcast).  The output's dims
+    longer than 1 merge where both operands' strides allow; ValueError
+    where more than two remain, or an operand's words are not whole
+    contiguous elements."""
+    shape = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    for x in (a, b):
+        if x.stride(-1) != 1 or any(s % x.shape[-1] for s in x.stride()[:-1]):
+            raise ValueError(f"kzg_fr_sub: operand strides {x.stride()} are not whole contiguous elements")
+    dims = []  # (size, a stride, b stride) of each output dim longer than 1, outermost first
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        strides = []
+        for x in (a, b):
+            k = d - (len(shape) - (x.dim() - 1))
+            strides.append(0 if k < 0 or x.shape[k] == 1 else x.stride(k) // x.shape[-1])
+        if dims and dims[-1][1] == strides[0] * size and dims[-1][2] == strides[1] * size:
+            dims[-1] = (dims[-1][0] * size, *strides)
+        else:
+            dims.append((size, *strides))
+    if len(dims) > 2:
+        raise ValueError(f"kzg_fr_sub: {tuple(a.shape)} - {tuple(b.shape)} does not collapse to two dims")
+    (rows, a_rs, b_rs), (cols, a_cs, b_cs) = [(1, 0, 0)] * (2 - len(dims)) + dims
+    return shape, rows, cols, a_rs, a_cs, b_rs, b_cs
+
+
+def fr_sub(a: torch.Tensor, b: torch.Tensor, rows_per_thread: int = SUB_ROWS_DEFAULT) -> torch.Tensor:
+    """a - b mod r on the card, one launch of ``kzg_fr_sub`` over
+    :func:`sub_view`'s [rows, cols], ``rows_per_thread`` rows a thread (one
+    of :data:`SUB_ROWS`), no broadcast copy; raises for a view that does
+    not collapse or an operand off 16 bytes."""
+    _check(FR, a, b)
+    if rows_per_thread not in SUB_ROWS:
+        raise ValueError(f"kzg_fr_sub: {rows_per_thread} rows a thread, not one of {SUB_ROWS}")
+    shape, rows, cols, a_rs, a_cs, b_rs, b_cs = sub_view(a, b)
+    n = rows * cols
+    if n >= 1 << 31 or cols >= 1 << 30:
+        raise ValueError(f"kzg_fr_sub: [{rows}, {cols}] exceeds the kernel's 32-bit index (two threads an element)")
+    out = torch.empty(shape + (FR.nwords,), dtype=torch.int32, device=a.device)
+    if n:
+        _check_aligned("kzg_fr_sub", a, b, out)
+        _build.launch("kzg_fr_sub", a.device, a, b, out, rows, cols, a_rs, a_cs, b_rs, b_cs, rows_per_thread)
+    return out
 
 
 def neg_mod(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -347,6 +411,37 @@ def geq_mod(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 def geq_const(spec: FieldSpec, a: torch.Tensor, bound: int) -> torch.Tensor:
     """a >= bound (an int); bool [...]."""
     return _compare(a, spec.const(bound, a.device), 1)
+
+
+def ingest_check(blob_bytes: torch.Tensor, flag: torch.Tensor | None = None):
+    """Blob ingest and canonicality: big-endian field elements [B, n, 32]
+    uint8 -> (words [n, B, 8], domain-major; [n, 8] for one blob's [n, 32]),
+    ok: a zero-dim bool tensor on the tensor's device, False iff an element
+    is >= r (the words of such a blob are the bytes' integers; the caller
+    raises).  Nothing waits for the device.  On the card one launch of
+    ``kzg_fr_ingest`` after setting ``flag`` (a zero-dim uint8 tensor, the
+    caller's, e.g. a captured graph's own; by default a fresh one) to 1;
+    ``ok`` is a view of it.  The bytes are contiguous and start on 16 bytes."""
+    if blob_bytes.dtype != torch.uint8 or blob_bytes.dim() not in (2, 3) or blob_bytes.shape[-1] != 32:
+        raise ValueError(f"ingest: expected uint8 [B, n, 32] or [n, 32] bytes, got {blob_bytes.dtype} {tuple(blob_bytes.shape)}")
+    if blob_bytes.device.type == "cpu":
+        return ingest_check_plain(blob_bytes)
+    if not blob_bytes.is_contiguous():
+        raise ValueError("kzg_fr_ingest: the blob bytes must be contiguous")
+    blobs, elems = (1, blob_bytes.shape[0]) if blob_bytes.dim() == 2 else tuple(blob_bytes.shape[:2])
+    if blobs * elems >= 1 << 30:
+        raise ValueError(f"kzg_fr_ingest: {blobs * elems} elements exceed the kernel's 32-bit index (two threads an element)")
+    dev = blob_bytes.device
+    if flag is None:
+        flag = torch.empty((), dtype=torch.uint8, device=dev)
+    elif flag.dtype != torch.uint8 or flag.dim() != 0 or flag.device != dev:
+        raise ValueError(f"kzg_fr_ingest: the flag is a zero-dim uint8 tensor on {dev}")
+    out = torch.empty(blob_bytes.shape[:-1][::-1] + (FR.nwords,), dtype=torch.int32, device=dev)
+    flag.fill_(1)
+    if out.numel():
+        _check_aligned("kzg_fr_ingest", blob_bytes, out)
+        _build.launch("kzg_fr_ingest", dev, blob_bytes, out, flag, blobs, elems)
+    return out, flag.view(torch.bool)
 
 
 SUM_BLOCKS = (256, 64, 32)  # the domain sum's block sizes, widest first

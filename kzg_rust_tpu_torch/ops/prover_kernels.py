@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``ops/prover_kernels.py``, whose
 (reference call stacks: SURVEY.md sections 3.2-3.3).  Here each is a
 sequence of the hand-written kernels with no host round trip inside:
 
-* blob ingest (``limbs.bytes_be_to_words``) and the canonicality flag;
+* blob ingest and the canonicality flag (``limbs.ingest_check``, one
+  launch of ``kzg_fr_ingest``);
 * in :func:`proof` only, y and the quotient: out of the domain the
   single-blob barycentric evaluation, whose inverses the quotient reuses
   (one negation instead of a second inversion); in the domain y is the
@@ -41,8 +42,7 @@ def ingest(blob_bytes: torch.Tensor):
     """[n, 32] uint8 big-endian field elements -> (evals [n, 8] words, ok:
     a bool scalar, False iff an element is >= r; the results of a blob that
     is not ok are garbage and the caller raises)."""
-    evals = L.bytes_be_to_words(blob_bytes)
-    return evals, ~L.geq_mod(FR, evals).any()
+    return L.ingest_check(blob_bytes)
 
 
 def msm(ctx: M.MsmContext, scalars: torch.Tensor, mark=_no_mark) -> torch.Tensor:

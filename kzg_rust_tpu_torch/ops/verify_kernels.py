@@ -8,15 +8,15 @@ host's Fiat-Shamir hashing overlaps stage 1):
   Fp square root (kernel A), the 131-step window-base doubling chain (one
   K4 chain launch) and the GLV subgroup check with the stage's flags
   (kernel B), A and B in ``csrc/stage1_kernels.cu``;
-* :func:`bary_batch_from_bytes`: blob ingest, canonicality and the batched
-  barycentric evaluation;
+* :func:`bary_batch_from_bytes`: blob ingest and canonicality (one launch of
+  ``kzg_fr_ingest``) and the batched barycentric evaluation;
 * stage 2, :func:`batch_stage2`: the RLC combination as one wide select
   and tree sum over the stage-1 bases, minus one generator multiple.
 
 Elsewhere every Fp and Fr product is K1/K2 and every point add and double
-is K3/K4 (see :mod:`.limbs` and :mod:`.curve`); selects, stacks and byte
-handling are plain tensor ops.  On CPU tensors the same code runs the plain
-versions (``*_plain``).
+is K3/K4 (see :mod:`.limbs` and :mod:`.curve`); selects and stacks are
+plain tensor ops.  On CPU tensors the same code runs the plain versions
+(``*_plain``).
 """
 
 from __future__ import annotations
@@ -365,18 +365,18 @@ def build_generator_table(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor, tickets=None):
+def bary_batch_from_bytes(ctx, blob_bytes: torch.Tensor, xs: torch.Tensor, tickets=None, flag=None):
     """Ingest + canonicality + batched barycentric evaluation:
     blob_bytes [B, n, 32] uint8 BE, xs [B, 8] canonical -> (ys [B, 8]
     canonical, ok bool scalar).  ``ok`` is False iff any field element is
     >= r; the ys are garbage in that case and callers must raise.
-    ``tickets`` go to the domain sum (:func:`limbs.sum_mod`).
+    ``tickets`` go to the domain sum (:func:`limbs.sum_mod`), ``flag`` to
+    the ingest (:func:`limbs.ingest_check`, one launch on the card).
 
     The evaluations are laid out domain-major, [n, B, 8], so that the
     product tree of the batch inversion and the domain sum run over
     contiguous halves and rows of axis 0."""
-    evals = L.bytes_be_to_words(blob_bytes.transpose(0, 1))  # [n, B, 8], on the card
-    ok = ~L.geq_mod(FR, evals).any()
+    evals, ok = L.ingest_check(blob_bytes, flag)  # [n, B, 8]
     return bary_batch_inv(ctx, evals, xs, tickets)[0], ok
 
 

@@ -20,10 +20,12 @@ import jax.numpy as jnp
 from kzg_rust_tpu.ops import fields as jfields
 from kzg_rust_tpu.ops import limbs as JL
 from kzg_rust_tpu.ops import pallas_kernels as PK
+from kzg_rust_tpu.ops import verify_kernels as JV
 from kzg_rust_tpu_torch.golden.field import P, R
 from kzg_rust_tpu_torch.ops import _build
 from kzg_rust_tpu_torch.ops import jax_state as JS
 from kzg_rust_tpu_torch.ops import limbs as L
+from kzg_rust_tpu_torch.ops import prover_kernels as PRK
 
 from .conftest import REPO_ROOT
 
@@ -507,3 +509,208 @@ def test_sqrt_chain_matches_pow_and_jax():
     assert torch.equal(got, JS.fp_from_jax(jm))
     rinv = pow(L.FP.mont_r, -1, P)
     assert [v * rinv % P for v in L.words_to_ints(got)] == [pow(v, e, P) for v in x]
+
+
+# ---------------------------------------------------------------------------
+# The blob ingest (kzg_fr_ingest) and the Fr difference (kzg_fr_sub)
+# ---------------------------------------------------------------------------
+
+INGEST_BLOBS, INGEST_ELEMS = 3, 8
+# Where a non-canonical element sits, by case: (blob, element, value); the
+# canonical case holds 0 and r - 1.
+INGEST_CASES = {
+    "canonical": None,
+    "r": (1, 3, R),
+    "r+1": (1, 3, R + 1),
+    "2^255": (0, 5, 1 << 255),
+    "2^256-1": (2, 0, (1 << 256) - 1),
+    "last-blob": (INGEST_BLOBS - 1, 2, R),
+    "last-row": (0, INGEST_ELEMS - 1, R),
+}
+
+
+def _blob_bytes(case: str, blobs: int) -> np.ndarray:
+    """[blobs, INGEST_ELEMS, 32] big-endian elements from a seeded
+    generator, 0 and r - 1 among them, and the case's bad element (in the
+    last blob where the case names blob 2 or the last one)."""
+    vals = _values(6, R, blobs * INGEST_ELEMS)
+    vals[:2] = [0, R - 1]
+    bad = INGEST_CASES[case]
+    if bad is not None:
+        b, i, v = bad
+        vals[min(b, blobs - 1) * INGEST_ELEMS + i] = v
+    raw = b"".join(v.to_bytes(32, "big") for v in vals)
+    return np.frombuffer(raw, np.uint8).reshape(blobs, INGEST_ELEMS, 32).copy()
+
+
+@pytest.mark.parametrize("case", list(INGEST_CASES))
+@pytest.mark.parametrize("layout", ["blobs", "one"])
+def test_ingest_check_matches_jax(case, layout):
+    """The plain ingest-and-check (the verify path's [B, n, 32] to
+    domain-major [n, B, 8], and the prover's ingest of one [n, 32] blob)
+    against the JAX package's blob_bytes_to_limbs + geq_mod + any, as
+    canonical integers and the flag, on the adversarial elements 0, r - 1,
+    r, r + 1, 2^255, 2^256 - 1 and a bad element only in the last blob or
+    only in the last row."""
+    blobs = _blob_bytes(case, INGEST_BLOBS if layout == "blobs" else 1)
+    jl = JV.blob_bytes_to_limbs(jnp.asarray(blobs))
+    jok = bool(~jnp.any(JL.geq_mod(jfields.FR, jl)))
+    want = JS.limbs12_to_ints(np.asarray(jl))  # blob-major
+    if layout == "blobs":
+        words, ok = L.ingest_check(torch.from_numpy(blobs))
+        assert words.shape == (INGEST_ELEMS, INGEST_BLOBS, 8)
+        words = words.transpose(0, 1)
+    else:
+        words, ok = PRK.ingest(torch.from_numpy(blobs[0]))
+        assert words.shape == (INGEST_ELEMS, 8)
+    assert ok.dtype == torch.bool and ok.dim() == 0
+    assert L.words_to_ints(words.reshape(-1, 8)) == want
+    assert bool(ok) == jok == (INGEST_CASES[case] is None)
+
+
+def _ingest_mirror(blobs: np.ndarray) -> tuple[np.ndarray, bool]:
+    """kzg_fr_ingest's threads on numpy: thread t = 2o + h writes half h
+    (words 4h .. 4h + 3) of output element o = (i, b) = (o // B, o % B)
+    from input half 1 - h of element (b, i), word 4h + j the byte-swapped
+    input word 3 - j of that half; each half is compared with r's (from its
+    top word down), the pair's high half deciding unless equal; a warp of
+    32 threads with an element >= r clears the flag."""
+    nb, ne = blobs.shape[:2]
+    halves = blobs.reshape(nb * ne, 2, 4, 4)  # [element, half, word, byte]
+    t = np.arange(2 * nb * ne)
+    o, h = t // 2, t % 2
+    i, b = o // nb, o % nb
+    src = halves[b * ne + i, 1 - h]  # [threads, 4 words, 4 bytes]
+    v = np.ascontiguousarray(src[:, ::-1, ::-1]).reshape(-1, 16).view("<u4")  # [threads, 4]
+    r_words = L.ints_to_words(8, [R])[0].view(np.uint32).reshape(2, 4)[h]
+    gt, eq = np.zeros(len(t), bool), np.ones(len(t), bool)
+    for j in range(3, -1, -1):
+        differs = eq & (v[:, j] != r_words[:, j])
+        gt |= differs & (v[:, j] > r_words[:, j])
+        eq &= ~differs
+    hi = slice(1, None, 2)
+    lo = slice(0, None, 2)
+    bad = gt[hi] | (eq[hi] & (gt[lo] | eq[lo]))  # a pair
+    bad = np.repeat(bad, 2)
+    warps = np.pad(bad, (0, -len(bad) % 32)).reshape(-1, 32).any(1)
+    return v.reshape(nb * ne, 8).view(np.int32).reshape(ne, nb, 8), not warps.any()
+
+
+@pytest.mark.parametrize("case", ["canonical", "last-blob", "last-row"])
+def test_ingest_kernel_mirror(case):
+    """The ingest kernel's thread mapping (two threads an element), byte
+    swap, compare of the halves and warp vote (mirrored) equal the plain
+    version, at the blob counts a chunk, a padded batch and a prover blob
+    give it; the kernel source swaps with PRMT 0x0123, the loaded half's
+    words in reverse order."""
+    text = (REPO_ROOT / "kzg_rust_tpu_torch" / "csrc" / "field_kernels.cu").read_text()
+    assert "const uint32_t v[4] = {__byte_perm(w.w, 0, 0x0123), __byte_perm(w.z, 0, 0x0123)," in text
+    assert "__byte_perm(w.y, 0, 0x0123), __byte_perm(w.x, 0, 0x0123)};" in text
+    for nb in (1, 4, INGEST_BLOBS, 64):
+        blobs = _blob_bytes(case, nb)
+        words, ok = _ingest_mirror(blobs)
+        plain_words, plain_ok = L.ingest_check_plain(torch.from_numpy(blobs))
+        assert np.array_equal(words, plain_words.numpy()) and ok == bool(plain_ok)
+
+
+def _fr_tensor(shape, seed):
+    n = int(np.prod(shape, dtype=np.int64))
+    return torch.from_numpy(L.ints_to_words(8, _values(seed, R, n))).reshape(tuple(shape) + (8,))
+
+
+def _sub_mirror(a, b, rows_per_thread: int, max_grid_y: int = 65535) -> torch.Tensor:
+    """kzg_fr_sub's launch on the host: the entry point's blocks (TX
+    threads, two a column, by 256 / TX row groups; the row groups past
+    max_grid_y blocks loop), each thread's column, half and R-row groups,
+    the operands read at sub_view's strides from their storage; every half
+    of every output element is written exactly once."""
+    shape, rows, cols, a_rs, a_cs, b_rs, b_cs = L.sub_view(a, b)
+    tx = 32
+    while tx < 256 and tx < 2 * cols:
+        tx *= 2
+    ty = 256 // tx
+    groups = -(-rows // rows_per_thread)
+    grid_y = min(-(-groups // ty), max_grid_y)
+    flat = lambda x: x.as_strided((x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,)).reshape(-1, 8)  # noqa: E731
+    fa, fb = flat(a), flat(b)
+    out = torch.zeros(rows * cols, 2, 4, dtype=torch.int32)
+    written = np.zeros((rows * cols, 2), np.int64)
+    for t in range(-(-2 * cols // tx) * tx):  # thread x of block t // tx
+        c, h = t // 2, t % 2
+        if c >= cols:
+            continue
+        for y in range(grid_y * ty):  # thread (by, ty)
+            for g in range(y, groups, grid_y * ty):
+                for k in range(rows_per_thread):
+                    r = g * rows_per_thread + k
+                    if r < rows:
+                        d = L.sub_mod_plain(L.FR, fa[r * a_rs + c * a_cs], fb[r * b_rs + c * b_cs])
+                        out[r * cols + c, h] = d.reshape(2, 4)[h]
+                        written[r * cols + c, h] += 1
+    assert (written == 1).all()
+    return out.reshape(shape + (8,))
+
+
+N_SUB = 16  # the domain (4096 on the path)
+SUB_SHAPES = {  # every Fr sub_mod of the main path, at small sizes
+    "bary x_b - w_i": lambda: (_fr_tensor((5,), 1)[None], _fr_tensor((N_SUB,), 2)[:, None]),
+    "bary xn - 1": lambda: (_fr_tensor((5,), 3), L.FR.const("one_mont", "cpu")),
+    "proof w - z": lambda: (_fr_tensor((N_SUB,), 4), _fr_tensor((1,), 5)),
+    "proof neg": lambda: (L.FR.const("zero", "cpu"), _fr_tensor((N_SUB,), 6)),
+    "proof e - y": lambda: (_fr_tensor((N_SUB,), 7), _fr_tensor((), 8)[None]),
+    "proof z - w": lambda: (_fr_tensor((1,), 9), _fr_tensor((N_SUB,), 10)),
+    "full": lambda: (_fr_tensor((N_SUB,), 11), _fr_tensor((N_SUB,), 12)),
+    "rows of a wider tensor": lambda: (_fr_tensor((6, 5), 13)[1:], _fr_tensor((5,), 14)),
+    "column slice": lambda: (_fr_tensor((N_SUB, 4), 15)[:, 2], _fr_tensor((N_SUB,), 16)),
+    "three dims that merge": lambda: (_fr_tensor((3, 4, 5), 17), _fr_tensor((5,), 18)),
+}
+
+
+@pytest.mark.parametrize("name", list(SUB_SHAPES))
+def test_sub_view_matches_broadcast(name):
+    """The Fr difference's [rows, cols] view and strides, for every caller's
+    shape on the path (and strided operands): the kernel's launch mirrored
+    at each rows-a-thread variant (and with the row groups looping past a
+    capped grid) equals the broadcast plain difference, word for word."""
+    a, b = SUB_SHAPES[name]()
+    want = L.sub_mod_plain(L.FR, a, b)
+    assert tuple(want.shape[:-1]) == tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    for rows_per_thread in L.SUB_ROWS:
+        assert torch.equal(_sub_mirror(a, b, rows_per_thread), want)
+    assert torch.equal(_sub_mirror(a, b, 1, max_grid_y=1), want)
+
+
+def test_sub_view_raises_where_it_cannot_collapse():
+    """A broadcast that leaves three dims, or words that are not whole
+    contiguous elements, raises: the wrapper never copies an operand."""
+    with pytest.raises(ValueError, match="two dims"):
+        L.sub_view(_fr_tensor((3, 1, 5), 1), _fr_tensor((4, 1), 2))
+    with pytest.raises(ValueError, match="whole contiguous"):
+        L.sub_view(_fr_tensor((4, 16), 3).reshape(4, 16, 8)[:, ::2].transpose(1, 2), _fr_tensor((4, 8), 4)[..., :8])
+    assert L.sub_view(_fr_tensor((4096, 1), 5)[:1].expand(4096, 64, 8), _fr_tensor((64,), 6))[1:] == (4096, 64, 0, 0, 0, 1)
+
+
+def test_ingest_and_sub_launch_or_raise():
+    """Off the CPU the two wrappers launch their kernels or raise (the meta
+    device has none: nothing is counted, nothing falls back); the entry
+    points take the wrappers' arguments; bad flags, rows a thread and
+    strided bytes raise before any launch."""
+    text = (REPO_ROOT / "kzg_rust_tpu_torch" / "csrc" / "field_kernels.cu").read_text()
+    assert 'extern "C" int kzg_fr_ingest(const void* in, void* out, void* ok, long long blobs, long long elems,' in text
+    assert 'extern "C" int kzg_fr_sub(const void* a, const void* b, void* out, long long rows, long long cols,' in text
+    assert "BINARY_ENTRY(kzg_fr_sub" not in text
+    assert len(_build.ENTRY_POINTS["kzg_fr_ingest"][1]) == 6 and len(_build.ENTRY_POINTS["kzg_fr_sub"][1]) == 11
+    _build.reset_launches()
+    meta_bytes = torch.empty((4, 16, 32), dtype=torch.uint8, device="meta")
+    meta_words = torch.empty((16, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.ingest_check(meta_bytes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.sub_mod(L.FR, meta_words, meta_words[:1])
+    with pytest.raises(ValueError, match="flag"):
+        L.ingest_check(meta_bytes, torch.empty(1, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        L.ingest_check(meta_bytes.transpose(0, 1))
+    with pytest.raises(ValueError, match="rows a thread"):
+        L.fr_sub(meta_words, meta_words, 3)
+    assert all(v == 0 for v in _build.LAUNCHES.values())

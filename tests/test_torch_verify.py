@@ -157,7 +157,11 @@ def _blob_bytes(n_blobs, fe, noncanonical_at=None):
     return np.frombuffer(bytes(data), np.uint8).reshape(n_blobs, fe, 32).copy()
 
 
-@pytest.mark.parametrize("noncanonical_at", [None, (2, 1)], ids=["canonical", "noncanonical"])
+@pytest.mark.parametrize(
+    "noncanonical_at",
+    [None, (2, 1), (3, MINIMAL.field_elements_per_blob - 1)],
+    ids=["canonical", "noncanonical", "noncanonical-last-row-of-last-blob"],
+)
 def test_bary_matches_jax_minimal(noncanonical_at):
     """Blob ingest, canonicality flag and the barycentric evaluation on the
     minimal preset, with the port's own FrContext and with the JAX
