@@ -21,16 +21,22 @@ Phases, any failure of which exits non-zero without the final line:
    same chains as launch sequences of K1 or K2, which are timed too;
    stage 1's kernels A (decompression) and B (the subgroup check), the K5
    rows, at 2 x 4096 and 2 x 64 points on valid, off-subgroup and
-   adversarial rows, A also in each of its variants (1, 2 or 4 lanes a
-   point) with ptxas's registers and spills, and stage 1 whole (A, the K4
-   chain, B) against its plain version with its flags, each replayed from
-   a CUDA graph; the domain sum (one launch) at a chunk's [4096, 64], a
+   adversarial rows, A in each of its variants (1, 2 or 4 lanes a point)
+   and B in each of its (lanes an add x groups a point, the serial
+   tree 4 x 1 included) with ptxas's registers and spills, B's variants
+   also swept at every stage-1 width from 128 to 8,192 points, and stage 1
+   whole (A, the K4 chain, B; also with B's serial tree) against its plain
+   version with its flags in every B variant on four cases (all decode and
+   in the subgroup, none in it, adversarial rows, one row that does not
+   decode but is in it), each replayed from a CUDA graph; the domain sum (one launch) at a chunk's [4096, 64], a
    proof's [4096, 1] and [4096, 4096], and twice replayed from a CUDA
    graph on new terms with its own tickets, a direct sum of more tiles
    between the replays (the tickets reset, and no other sum reaches the
    graph's); the
    prover's M1 (GLV digits) and M2 (the MSM after the digits, one launch)
-   at mainnet width, edge scalars and an infinity column included, M2 also
+   at mainnet width, edge and ripple scalars and an infinity column
+   included, M1 in each of its variants (8 or 1 lanes a scalar) beside
+   an empty kernel of its grid timed the same way (the launch floor), M2 also
    on a table of repeated and negated points (P == Q, P == -Q, infinity)
    and at every (accumulators, block) of its sweep; the verify
    path's small launchers at the shapes it gives them: the Fr difference
@@ -191,6 +197,11 @@ PATH_LAUNCHES = {"commit": 3, "proof": 53}
 BARY_LAUNCHES = 48
 # Stage 1 on the card: kernel A, the window-base chain, kernel B.
 STAGE1_LAUNCHES = {"kzg_g1_decompress": 1, "kzg_proj_double_chain": 1, "kzg_g1_subgroup_check": 1}
+# Stage 1's widths (2 npad points) from n = 64 to n = 4096, where kernel
+# B's variants are swept, and B's serial variant (one group a point),
+# which stage 1 whole is also timed with.
+STAGE1_WIDTHS = (128, 256, 512, 1024, 2048, 4096, 8192)
+SERIAL_B = (4, 1)
 # M2's sweep on the card: (accumulators an SM, threads a block), each
 # timed and held against its plain version; ops/msm.py takes the fastest
 # as its default.
@@ -572,6 +583,141 @@ def check_ingest(device, record, cold_ms) -> dict:
     log("kernel kzg_fr_ingest: one CUDA graph on its own flag, replayed on a bad, a good and a bad chunk: ok False, True, False, words equal to plain")
     rows[0].update(at_prover_blob=rows[1], graph_flag_replays=seen, kernels_line=True)
     return rows[0]
+
+
+def subgroup_ptxas(lanes: tuple, n: int, sms: int, ptxas: dict) -> tuple:
+    """ptxas's (registers, spills) of kernel B's variant ``lanes`` (lanes
+    an add, groups) at ``n`` points."""
+    width, groups = lanes
+    if groups == 1:
+        block = next(t for t in (128, 64, 32) if -(-n * width // t) >= sms or t == 32)
+        name = f"subgroup_kernel {block}"
+    else:
+        name = f"subgroup_tree_kernel {width} {groups}"
+    _, regs, spills = ptxas.get(name, (None, "not reported", "not reported"))
+    return regs, spills
+
+
+def lanes_label(lanes: tuple) -> str:
+    return f"{lanes[0]}x{lanes[1]}"
+
+
+def subgroup_variants(points, bases, bases2, want, n: int, sms: int, ptxas: dict) -> list[dict]:
+    """Kernel B in each of its variants (lanes an add x groups a point) on
+    these operands: held bit for bit against ``want`` (the plain
+    version's), timed replayed (20 calls in a graph)."""
+    import torch
+
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    out = []
+    for lanes in V.SUBGROUP_LANES:
+        call = lambda p=points, x=bases, y=bases2, n_=lanes: V.subgroup_check_from_bases(p, x, y, lanes=n_)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 B at [{n}], lanes {lanes_label(lanes)}: disagrees with its plain version")
+        regs, spills = subgroup_ptxas(lanes, n, sms, ptxas)
+        out.append({"lanes": lanes_label(lanes), "lanes_a_point": lanes[0] * lanes[1], "ms": graph_ms(call, 20), "ptxas": regs, "spills": spills})
+    return out
+
+
+def subgroup_width_sweep(device, distinct, sms: int, ptxas: dict) -> dict:
+    """Kernel B's variants at every stage-1 width of a batch from n = 64 to
+    n = 4096 (2 npad points), on rows of the subgroup and off it, each held
+    against the plain version: the sweep behind verify_kernels.
+    subgroup_lanes."""
+    import numpy as np
+    import torch
+
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    sweep = {}
+    for n in STAGE1_WIDTHS:
+        rows_s = [distinct[k % len(distinct)] for k in range(n)]
+        comp = torch.from_numpy(np.frombuffer(b"".join(rows_s), np.uint8).reshape(n, 48).copy()).to(device)
+        points, _ = V.g1_uncompress_points(comp)
+        bases, bases2 = V.bases_chain(points)
+        want = V.subgroup_check_from_bases_plain(points, bases, bases2)
+        variants = subgroup_variants(points, bases, bases2, want, n, sms, ptxas)
+        sweep[n] = {v["lanes"]: v["ms"] for v in variants}
+        fastest = min(variants, key=lambda v: v["ms"])["lanes"]
+        log(f"kernel K5 B sweep at [{n}]: lanes an add x groups -> ms " + "; ".join(f"{v['lanes']} {v['ms']:.4f}" for v in variants) + f"; fastest {fastest}, subgroup_lanes {lanes_label(V.subgroup_lanes(n, sms))}")
+    return sweep
+
+
+# An empty kernel with M1's launch, built beside the port's kernels: the
+# floor of a launch timed as M1 is (replayed, L2 cold, same stream).
+EMPTY_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel(const void*, void*, unsigned) {}
+extern "C" int kzg_empty(const void* in, void* out, long long blocks, long long threads, void* stream) {
+  empty_kernel<<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(in, out, 0);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launcher():
+    """ctypes entry of EMPTY_PROBE, built with nvcc for sm_90a."""
+    import ctypes
+
+    from kzg_rust_tpu_torch.ops import _build
+
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    src = os.path.join(_build.build_dir(), "empty_probe.cu")
+    lib = src[:-3] + ".so"
+    with open(src, "w") as fh:
+        fh.write(EMPTY_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build._nvcc(), *flags, "-o", lib, src], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(lib).kzg_empty
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def glv_digit_variants(k, m1: dict, l2: int, ptxas: dict) -> list[dict]:
+    """M1 in each of its variants (lanes a scalar; 1 is the one-thread
+    design) on the scalars ``k``, digit for digit against the plain
+    version, timed as M1's row is (L2 cold, replayed); and the floor, an
+    empty kernel with the default variant's grid timed the same way."""
+    import torch
+
+    from kzg_rust_tpu_torch.ops import msm as M
+
+    want = M.glv_digits_plain(k)
+    m = k.shape[0]
+    nbytes = m * (8 * 4 + 2 * M.GLV_NUM_WINDOWS)
+    out = []
+    for lanes in M.GLV_DIGIT_LANES:
+        call = lambda x, n_=lanes: M.glv_digits_from_limbs(x, lanes=n_)  # noqa: E731
+        got = call(k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"M1 at [{m}], {lanes} lanes: disagrees with its plain version")
+        name = "glv_digits_kernel" if lanes == 1 else f"glv_digits_lanes_kernel {lanes}"
+        _, regs, spills = ptxas.get(name, (None, "not reported", "not reported"))
+        ms = cold_graph_ms(call, (k,), nbytes, l2, 50)
+        out.append({"lanes": lanes, "ms": ms, "ptxas": regs, "spills": spills})
+    empty = empty_launcher()
+    lanes = M.GLV_DIGIT_LANES[0]
+    blocks, threads = -(-m // 32), 32 * lanes
+
+    def launch_empty(x):
+        o = torch.empty((2, M.GLV_NUM_WINDOWS, m), dtype=torch.int8, device=x.device)
+        rc = empty(x.data_ptr(), o.data_ptr(), blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel: CUDA error {rc} at launch")
+        return o
+
+    m1["launch_floor_ms"] = cold_graph_ms(launch_empty, (k,), nbytes, l2, 50)
+    log(
+        f"kernel M1 at [{m}]: every variant equal to the plain version (ripple and edge scalars leading); lanes -> ms: "
+        + "; ".join(f"{v['lanes']} {v['ms']:.4f} ({v['ptxas']}; {v['spills']})" for v in out)
+        + f"; an empty kernel of {blocks} blocks of {threads} threads, timed the same way: {m1['launch_floor_ms']:.4f} ms"
+    )
+    return out
 
 
 def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], list[dict]]:
@@ -1021,6 +1167,13 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
             plain_reps=1,
             timed=V.subgroup_check_from_bases,
         )
+        # B's variants (lanes an add x groups; 4 x 1 is the serial tree), each
+        # held bit for bit against the plain version on every row, timed
+        # replayed (20 calls in a graph), with ptxas's registers and spills.
+        want_b = V.subgroup_check_from_bases_plain(points, bases, bases2)
+        b["variants"] = subgroup_variants(points, bases, bases2, want_b, ns, sms, ptxas)
+        b["lanes"] = lanes_label(V.subgroup_lanes(ns, sms))
+        log(f"kernel K5 B at [{ns}]: every variant equal to the plain version; lanes an add x groups -> ms: " + "; ".join(f"{v['lanes']} {v['ms']:.4f} ({v['ptxas']}; {v['spills']})" for v in b["variants"]))
         sub = V.subgroup_check_from_bases(points, bases, bases2).cpu().tolist()
         seen = len(adversarial) + min(len(distinct), ns - len(adversarial))
         affine = C.proj_to_points(points[:seen].cpu())
@@ -1034,29 +1187,38 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"stage 1 at [{ns}]: kernels A, the chain and B disagree with the plain stage")
         stage_ms = graph_ms(lambda c=comp: V.batch_points(c), 10)
+        serial_ms = graph_ms(lambda c=comp: V.batch_points(c, lanes=SERIAL_B), 10)
         a["stage1_ms"] = b["stage1_ms"] = stage_ms
+        b["stage1_ms_serial_b"] = serial_ms
         log(
             f"kernel K5: A and B equal to their plain versions and the golden model at [{ns}] "
             f"({seen} distinct rows); stage 1 whole equal to its plain version, {stage_ms:.4f} ms replayed "
-            f"(A {a['ms']:.4f} + the K4 chain + B {b['ms']:.4f})"
+            f"(A {a['ms']:.4f} + the K4 chain + B {b['ms']:.4f}, B {b['lanes']}); with B's serial tree "
+            f"({lanes_label(SERIAL_B)}) {serial_ms:.4f} ms"
         )
         k5["a"].append(a)
         k5["b"].append(b)
     # The flags: all decode and all in the subgroup; all decode, none in it;
     # the adversarial rows, some of which fail each.
+    # A valid point without its compression bit does not decode, yet its
+    # point is in the subgroup: the fourth case, flag 0 alone cleared.
     ns = SHAPES["stage1"][1]
+    uncompressed_bit = bytes([distinct[0][0] & 0x7F]) + distinct[0][1:]
     flag_sets = {
         "subgroup": (distinct[:ns], [1, 1]),
         "off_subgroup": (distinct[256 : 256 + ns], [1, 0]),
         "adversarial": (adversarial + distinct[: ns - len(adversarial)], [0, 0]),
+        "undecoded_in_subgroup": (distinct[: ns - 1] + [uncompressed_bit], [0, 1]),
     }
     for label, (rows_s, want) in flag_sets.items():
         comp = compressed(rows_s)
-        flags = V.batch_points(comp)[2].tolist()
         plain = V.batch_points_plain(comp)[2].tolist()
-        if not flags == plain == want:
-            raise AssertionError(f"stage 1 flags on the {label} rows: kernels {flags}, plain {plain}, expected {want}")
-    log(f"kernel K5: stage 1's flags at [{ns}]: {json.dumps({k: v[1] for k, v in flag_sets.items()})}, as its plain version gives them")
+        for lanes in V.SUBGROUP_LANES:
+            flags = V.batch_points(comp, lanes=lanes)[2].tolist()
+            if not flags == plain == want:
+                raise AssertionError(f"stage 1 flags on the {label} rows, B at lanes {lanes_label(lanes)}: kernels {flags}, plain {plain}, expected {want}")
+    log(f"kernel K5: stage 1's flags at [{ns}] in every B variant {[lanes_label(v) for v in V.SUBGROUP_LANES]}: {json.dumps({k: v[1] for k, v in flag_sets.items()})}, as its plain version gives them")
+    k5["b"][0]["width_sweep"] = subgroup_width_sweep(device, distinct, sms, ptxas)
 
     # K1 as the path launches it since stage 1 runs in kernels A and B: the
     # phi halves' X times beta in stage 2, [66, 4096, 3] selected points.
@@ -1094,8 +1256,11 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
 
     msrc = "kzg_rust_tpu_torch/csrc/msm_kernels.cu"
     npts = SHAPES["msm"]
+    from kzg_rust_tpu_torch.utils.testing import glv_ripple_scalars
+
     scalars = random_field(rng, R, npts)
-    scalars[:8] = [0, 1, R - 1, R // 2, (R + 1) // 2, glv.Z2, R - glv.Z2, glv.LAM]
+    edge_scalars = [0, 1, R - 1, R // 2, (R + 1) // 2, glv.Z2, R - glv.Z2, glv.LAM] + glv_ripple_scalars()
+    scalars[: len(edge_scalars)] = edge_scalars
     k = L.to_device(L.FR, scalars, device)
     m1 = record(
         "M1 kzg_glv_digits",
@@ -1109,6 +1274,8 @@ def check_kernels(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], lis
         50,
         keep=False,
     )
+    m1["variants"] = glv_digit_variants(k, m1, l2_bytes, ptxas)
+    m1["lanes"] = M.GLV_DIGIT_LANES[0]
     digits = M.glv_digits_from_limbs(k)
     check = digits.cpu().to(torch.int64)
     for i in (0, 1, 2, 5, npts - 1):

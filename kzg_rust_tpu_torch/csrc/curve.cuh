@@ -148,19 +148,26 @@ __device__ __forceinline__ Elt sel(bool c, const Elt& a, const Elt& b) {
   return r;
 }
 
-// a += b as add_staged, by the G lanes of one group (G = 2, 4 or 8; lane r
-// in 0..G-1, mask naming the group's lanes).  The formula's twelve
-// products fall into two levels of six independent ones, and lane r takes
-// products r, r + G, ... of each level, so a point waits for 12 / G
+// out = a + b as add_staged, by the G lanes of one group (G = 2, 4 or 8;
+// lane r in 0..G-1, mask naming the group's lanes).  The formula's
+// twelve products fall into two levels of six independent ones, and lane r
+// takes products r, r + G, ... of each level, so a point waits for 12 / G
 // products, or two with G = 8 (lanes 6 and 7 then idle), not twelve.  The
-// lanes exchange the first level's products through the group's scratch s
-// (12 coordinates); each lane forms all six second-level operands from
-// them (t3, t1 - b3 t2, t4, b3 t5, 3 t0, t1 + b3 t2) and picks its own, and
-// lanes 0-2 form X3 = q0 - q1, Y3 = q2 + q3 and Z3 = q4 + q5 from the
-// second level's products into a.  Every coordinate is the canonical value
-// of the same formula, so a gets add_staged's words.  b is only read.
-template <int G>
-__device__ __forceinline__ void add_lanes(uint4* a, const uint4* b, uint4* s, int r, unsigned mask) {
+// lanes exchange the first level's products through the group's scratch s;
+// the second level multiplies pairs of six operands (t3, t4, b3 t5,
+// t1 - b3 t2, t1 + b3 t2, 3 t0) formed from them, which the lanes exchange
+// too (s: twelve coordinates).  With G < 6 each lane forms all six and
+// stores its own; with G = 8 lane q forms operand q alone, as
+// k (x - y - z) + w over the products with k in {1, 3, 12}: 7 field adds
+// on a lane's path instead of 17.  Lanes 0-2 form X3 = q0 - q1, Y3 = q2 + q3 and Z3 = q4 + q5 from
+// the second level's products into out.  Every coordinate is the canonical
+// value of the same field element, so out gets add_staged's words.  The
+// operands come from coord_a(c) and coord_b(c) (coordinate c, read in the
+// first level only), so they may lie in shared or device memory; out may
+// be a.
+template <int G, class CoordA, class CoordB>
+__device__ __forceinline__ void add_lanes_from(uint4* out, const CoordA& coord_a, const CoordB& coord_b, uint4* s,
+                                               int r, unsigned mask) {
   Elt zero;
 #pragma unroll
   for (int j = 0; j < Fp::N; j++) zero.w[j] = 0;
@@ -169,31 +176,59 @@ __device__ __forceinline__ void add_lanes(uint4* a, const uint4* b, uint4* s, in
   // coordinate v from q = 3 on.
   for (int q = r; q < 6; q += G) {
     const int u = q < 3 ? q : (q == 4 ? 1 : 0), v = q == 3 ? 1 : 2;
-    const Elt x = add(lds(a + 3 * u), sel(q >= 3, lds(a + 3 * v), zero));
-    const Elt y = add(lds(b + 3 * u), sel(q >= 3, lds(b + 3 * v), zero));
+    const Elt x = add(coord_a(u), sel(q >= 3, coord_a(v), zero));
+    const Elt y = add(coord_b(u), sel(q >= 3, coord_b(v), zero));
     sts(s + 3 * q, mul(x, y));
   }
   __syncwarp(mask);
-  // q0 = t3 t1m, q1 = t4 y3t, q2 = y3t 3t0, q3 = t1m z3t, q4 = z3t t4,
-  // q5 = 3t0 t3.
-  const Elt t0 = lds(s), t1 = lds(s + 3), t2 = lds(s + 6);
-  const Elt bt2 = times_b3(t2);
-  const Elt t1m = sub(t1, bt2), z3t = add(t1, bt2), three_t0 = add(add(t0, t0), t0);
-  const Elt t3 = sub(lds(s + 9), add(t0, t1));
-  const Elt t4 = sub(lds(s + 12), add(t1, t2));
-  const Elt y3t = times_b3(sub(lds(s + 15), add(t0, t2)));
+  // The second level: the six operands (t3, t4, y3t, t1m, z3t, 3t0) go to
+  // s + 18 (coordinates 6-11), and product q multiplies operand q by
+  // operand (3, 2, 5, 4, 1, 0)[q]: q0 = t3 t1m, q1 = t4 y3t, q2 = y3t 3t0,
+  // q3 = t1m z3t, q4 = z3t t4, q5 = 3t0 t3.
+  if constexpr (G >= 6) {
+    // Operand q = k (x - y - z) + w, x, y, z, w products or 0: t3 = r3 -
+    // t0 - t1, t4 = r4 - t1 - t2, y3t = 12 (r5 - t0 - t2), t1m = 12 (0 -
+    // t2) + t1, z3t = 12 t2 + t1, 3t0 = 3 t0.
+    if (r < 6) {
+      const int xi = r == 0 ? 3 : r == 1 ? 4 : r == 2 ? 5 : r == 4 ? 2 : r == 5 ? 0 : -1;
+      const int yi = r == 0 ? 0 : r == 1 ? 1 : r == 2 ? 0 : r == 3 ? 2 : -1;
+      const int zi = r == 0 ? 1 : r == 1 || r == 2 ? 2 : -1;
+      const Elt x = xi < 0 ? zero : lds(s + 3 * xi);
+      const Elt y = yi < 0 ? zero : lds(s + 3 * yi);
+      const Elt z = zi < 0 ? zero : lds(s + 3 * zi);
+      const Elt d = sub(sub(x, y), z);
+      const Elt d3 = add(add(d, d), d);
+      const Elt d6 = add(d3, d3);
+      const Elt k = r < 2 ? d : r == 5 ? d3 : add(d6, d6);
+      sts(s + 18 + 3 * r, r == 3 || r == 4 ? add(k, lds(s + 3)) : k);
+    }
+  } else {
+    const Elt t0 = lds(s), t1 = lds(s + 3), t2 = lds(s + 6);
+    const Elt bt2 = times_b3(t2);
+    const Elt ops[6] = {sub(lds(s + 9), add(t0, t1)), sub(lds(s + 12), add(t1, t2)),
+                        times_b3(sub(lds(s + 15), add(t0, t2))), sub(t1, bt2), add(t1, bt2), add(add(t0, t0), t0)};
+#pragma unroll
+    for (int q = 0; q < 6; q++)
+      if (q % G == r) sts(s + 18 + 3 * q, ops[q]);
+  }
   __syncwarp(mask);
   for (int q = r; q < 6; q += G) {
-    const Elt left = sel(q == 0, t3, sel(q == 1, t4, sel(q == 2, y3t, sel(q == 3, t1m, sel(q == 4, z3t, three_t0)))));
-    const Elt right = sel(q == 0, t1m, sel(q == 1, y3t, sel(q == 2, three_t0, sel(q == 3, z3t, sel(q == 4, t4, t3)))));
-    sts(s + 3 * q, mul(left, right));
+    const int pair = q == 0 ? 3 : q == 1 ? 2 : q == 2 ? 5 : q == 3 ? 4 : q == 4 ? 1 : 0;
+    sts(s + 3 * q, mul(lds(s + 18 + 3 * q), lds(s + 18 + 3 * pair)));
   }
   __syncwarp(mask);
   for (int c = r; c < 3; c += G) {
     const Elt e = lds(s + 6 * c), f = lds(s + 6 * c + 3);
-    sts(a + 3 * c, c == 0 ? sub(e, f) : add(e, f));
+    sts(out + 3 * c, c == 0 ? sub(e, f) : add(e, f));
   }
   __syncwarp(mask);
+}
+
+// a += b by the G lanes of one group, both points in shared memory (9
+// 16-byte vectors each: X at 0-2, Y at 3-5, Z at 6-8); b is only read.
+template <int G>
+__device__ __forceinline__ void add_lanes(uint4* a, const uint4* b, uint4* s, int r, unsigned mask) {
+  add_lanes_from<G>(a, [a](int c) { return lds(a + 3 * c); }, [b](int c) { return lds(b + 3 * c); }, s, r, mask);
 }
 
 }  // namespace kzg

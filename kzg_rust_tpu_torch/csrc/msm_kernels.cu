@@ -10,14 +10,24 @@
 // kzg_rust_tpu/ops/curve.py:350 fold_reduce_mixed.  The JAX package never
 // wrote either in Pallas; the TPU ran them as XLA programs.
 //
-// M1.  One thread per scalar k (canonical Fr, 8 words): the device GLV split
-// of glv.py, m1 = floor(k G1C / 2^264) (a 8 x 5-word product, shifted by 8
+// M1.  The device GLV split of glv.py for each scalar k (canonical Fr, 8
+// words): m1 = floor(k G1C / 2^264) (a 8 x 5-word product, shifted by 8
 // words and 8 bits), m2' = [k >= (r + 1) / 2], k1 = k - (m1 z^2 + m2') and
 // k2 = m2' (z^2 - 1) - m1, both below 2^128 in magnitude, then the signed
 // base-32 recoding of each magnitude (26 digits in [-16, 16], a digit above
 // 16 borrows from the next window) with the sign folded in.  The same
 // integers as the JAX program, so the same digits.  Bound: bytes (32 in,
 // 52 out a scalar); the work is a few hundred multiply-adds a scalar.
+// What bounds it on this card is the launch and one scalar's chain: the
+// first design, one thread a scalar in blocks of 128 (32 blocks for a blob's
+// 4096 scalars, so 100 SMs idle), ran the product, the split and 52
+// dependent digit steps with their carries.  The lane design
+// (glv_digits_lanes_kernel, below) spreads a scalar over 8 lanes in blocks
+// of 32 scalars (128 SMs at work): the product by columns with its carries
+// by ballot lookahead, the two halves recoded on different lanes with the
+// windows' carries by ballot lookahead, and the digits through shared
+// memory so that a warp's stores are whole sectors.  The one-thread design
+// stays as the variant of 1 lane.
 //
 // M2.  A accumulators ("accs"), one a thread, in blocks of T threads.
 // Accumulator a takes the selections s = a, a + A, a + 2A, ... of the 52 N,
@@ -182,26 +192,11 @@ __device__ __forceinline__ void recode32(const uint32_t* mag, bool neg, int8_t* 
   }
 }
 
-// M1: k [m, 8] canonical Fr -> digits [2, 26, m] int8 (half 0: k1, half 1: k2).
-__global__ void __launch_bounds__(128) glv_digits_kernel(const uint4* __restrict__ scalars,
-                                                        int8_t* __restrict__ out, uint32_t m) {
-  const uint32_t i = blockIdx.x * 128 + threadIdx.x;
-  if (i >= m) return;
-  uint32_t k[8];
-  load_vec<8>(k, scalars + (size_t)i * 2);
-
-  uint32_t g1c[5], z2[4];
-#pragma unroll
-  for (int j = 0; j < 5; j++) g1c[j] = g1c_word(j);
-#pragma unroll
-  for (int j = 0; j < 4; j++) z2[j] = z2_word(j);
-
-  // m1 = floor(k G1C / 2^264): k G1C < 2^392, so m1 < 2^128.
-  uint32_t prod[13], m1[4];
-  mul_words<8, 5>(prod, k, g1c);
-#pragma unroll
-  for (int j = 0; j < 4; j++) m1[j] = (prod[8 + j] >> 8) | (prod[9 + j] << 24);
-
+// The two GLV halves of k from m1 = floor(k G1C / 2^264): m2' = [k >=
+// ceil(r / 2)], k1 = k - (m1 z^2 + m2') and k2 = m2' (z^2 - 1) - m1, both
+// below 2^128 in magnitude; half 0 or 1's magnitude (words 0..4, word 5
+// zero) and sign.
+__device__ __forceinline__ void glv_halves(const uint32_t* k, const uint32_t* m1, int half, uint32_t* mag, bool& neg) {
   // m2' = [k >= ceil(r / 2)]: the most significant differing word decides.
   bool ge = true, eq = true;
 #pragma unroll
@@ -215,7 +210,9 @@ __global__ void __launch_bounds__(128) glv_digits_kernel(const uint4* __restrict
 
   // k1 = k - (m1 z^2 + m2'), with u = m1 z^2 + m2' < k + 2^120 < 2^256 and
   // |k1| < 2^128: the 8-word difference is exact in two's complement.
-  uint32_t u[8], mag1[6], mag2[6];
+  uint32_t z2[4], u[8];
+#pragma unroll
+  for (int j = 0; j < 4; j++) z2[j] = z2_word(j);
   mul_words<4, 4>(u, m1, z2);
   uint64_t c = m2;
 #pragma unroll
@@ -235,12 +232,170 @@ __global__ void __launch_bounds__(128) glv_digits_kernel(const uint4* __restrict
   const bool neg2 = sub_words<4>(d2, v, m1);
   if (neg2) negate_words<4>(d2);
 #pragma unroll
-  for (int j = 0; j < 6; j++) {
-    mag1[j] = j < 5 ? d1[j] : 0u;
-    mag2[j] = j < 4 ? d2[j] : 0u;
-  }
+  for (int j = 0; j < 6; j++) mag[j] = half == 0 ? (j < 5 ? d1[j] : 0u) : (j < 4 ? d2[j] : 0u);
+  neg = half == 0 ? neg1 : neg2;
+}
+
+// M1: k [m, 8] canonical Fr -> digits [2, 26, m] int8 (half 0: k1, half 1: k2).
+__global__ void __launch_bounds__(128) glv_digits_kernel(const uint4* __restrict__ scalars,
+                                                        int8_t* __restrict__ out, uint32_t m) {
+  const uint32_t i = blockIdx.x * 128 + threadIdx.x;
+  if (i >= m) return;
+  uint32_t k[8];
+  load_vec<8>(k, scalars + (size_t)i * 2);
+
+  uint32_t g1c[5];
+#pragma unroll
+  for (int j = 0; j < 5; j++) g1c[j] = g1c_word(j);
+
+  // m1 = floor(k G1C / 2^264): k G1C < 2^392, so m1 < 2^128.
+  uint32_t prod[13], m1[4];
+  mul_words<8, 5>(prod, k, g1c);
+#pragma unroll
+  for (int j = 0; j < 4; j++) m1[j] = (prod[8 + j] >> 8) | (prod[9 + j] << 24);
+
+  uint32_t mag1[6], mag2[6];
+  bool neg1, neg2;
+  glv_halves(k, m1, 0, mag1, neg1);
+  glv_halves(k, m1, 1, mag2, neg2);
   recode32(mag1, neg1, out + i, m);
   recode32(mag2, neg2, out + (size_t)kWindows * m + i, m);
+}
+
+// M1 over G lanes a scalar (G = 8: on the H100 4 lanes ran no faster),
+// kDigitScalars scalars a block.  Every lane of the scalar's group loads
+// it whole.
+// - m1 = floor(k G1C / 2^264) by columns: lane r takes rows r + G t of the
+//   8 x 5-word product (k_i G1C, 6 words each), one shuffle a row word
+//   moves word d of each row to the lane that owns its column i + d
+//   (columns r + G u), so each lane sums its columns (below 6 x 2^32).
+//   Each column's high part moves up one column (a shuffle), which leaves
+//   33-bit columns whose carries are one bit: a column generates one when
+//   it is 2^32 or more and propagates one when it is 2^32 - 1, the group's
+//   ballots give both masks, and (gen + prop) ^ gen ^ prop is every
+//   column's carry in at once (field.cuh lane_mul's lookahead).  The five
+//   words of m1 then go to every lane (five shuffles).
+// - m2', k1 and k2 as the one-thread design, in every lane (short).
+// - The recoding: lanes 0 .. G/2 - 1 take the k1 half, the others k2; lane
+//   q of a half takes windows q + (G/2) t.  A window generates a carry when
+//   its raw value is 17 or more and propagates one when it is exactly 16
+//   (a digit above 16 borrows 32 from the next window): two ballots a step
+//   of t give the half's 26-bit masks, and the same add gives every
+//   window's carry in, so no window waits for the one below.
+// - The digits go through shared memory as [52 rows][kDigitScalars], so
+//   that each row's kDigitScalars bytes leave as two 16-byte stores and a
+//   warp's stores cover 16 whole 32-byte sectors of the [2, 26, m] layout.
+constexpr int kDigitScalars = 32;
+
+template <int G>
+__global__ void __launch_bounds__(kDigitScalars * G) glv_digits_lanes_kernel(const uint4* __restrict__ scalars,
+                                                                             int8_t* __restrict__ out, uint32_t m) {
+  constexpr int RT = 8 / G;                 // rows of the product a lane
+  constexpr int CU = (13 + G - 1) / G;      // columns a lane
+  constexpr int Q = G / 2;                  // lanes a half
+  constexpr int TW = (kWindows + Q - 1) / Q;  // windows a lane
+  __shared__ __align__(16) int8_t dig[2 * kWindows][kDigitScalars];
+  const int r = threadIdx.x % G;
+  const uint32_t sc = threadIdx.x / G;
+  const uint32_t first = blockIdx.x * kDigitScalars;
+  const uint32_t at = min(first + sc, m - 1);
+  const unsigned base = threadIdx.x % 32 / G * G;
+  uint32_t k[8];
+  load_vec<8>(k, scalars + (size_t)at * 2);
+
+  // The rows k_i G1C for i = r + G t.
+  uint32_t row[RT][6];
+#pragma unroll
+  for (int t = 0; t < RT; t++) {
+    uint32_t ki = k[0];
+#pragma unroll
+    for (int j = 1; j < 8; j++) ki = j == r + G * t ? k[j] : ki;
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < 5; j++) {
+      const uint64_t p = (uint64_t)ki * g1c_word(j) + carry;
+      row[t][j] = (uint32_t)p;
+      carry = p >> 32;
+    }
+    row[t][5] = (uint32_t)carry;
+  }
+  // Word d of row src + G t, src = (r - d) mod G, lies in column
+  // src + G t + d = r + G (e + t): slot e + t of this lane.
+  uint64_t col[CU];
+#pragma unroll
+  for (int u = 0; u < CU; u++) col[u] = 0;
+#pragma unroll
+  for (int d = 0; d < 6; d++) {
+    const int src = (r - d + 8 * G) % G, e = (src + d - r) / G;
+#pragma unroll
+    for (int t = 0; t < RT; t++) {
+      const uint32_t v = __shfl_sync(kFullWarp, row[t][d], src, G);
+#pragma unroll
+      for (int u = t; u < CU; u++) col[u] += u == e + t ? v : 0u;
+    }
+  }
+  // Move each column's high part (below 6) into the next column, then
+  // resolve the one-bit carries by lookahead over the group's ballots.
+  uint64_t tcol[CU];
+  unsigned gen = 0, prop = 0;
+#pragma unroll
+  for (int u = 0; u < CU; u++) {
+    const uint32_t below = __shfl_sync(kFullWarp, (uint32_t)(col[u] >> 32), (r + G - 1) % G, G);
+    const uint32_t below0 = u == 0 ? 0u : __shfl_sync(kFullWarp, (uint32_t)(col[u - 1] >> 32), G - 1, G);
+    tcol[u] = (uint64_t)(uint32_t)col[u] + (r > 0 ? below : below0);
+    const bool g_bit = tcol[u] >> 32, p_bit = g_bit || (uint32_t)tcol[u] == ~0u;
+    gen |= ((__ballot_sync(kFullWarp, g_bit) >> base) & ((1u << G) - 1)) << (G * u);
+    prop |= ((__ballot_sync(kFullWarp, p_bit) >> base) & ((1u << G) - 1)) << (G * u);
+  }
+  const unsigned carries = (gen + prop) ^ gen ^ prop;  // bit c: the carry into column c
+  uint32_t word[CU];
+#pragma unroll
+  for (int u = 0; u < CU; u++) word[u] = (uint32_t)tcol[u] + (carries >> (r + G * u) & 1u);
+  // m1 = words 8..12 shifted down by 8 bits: k G1C < 2^392, so m1 < 2^128.
+  uint32_t top[5], m1[4];
+#pragma unroll
+  for (int c = 8; c < 13; c++) top[c - 8] = __shfl_sync(kFullWarp, word[c / G], c % G, G);
+#pragma unroll
+  for (int j = 0; j < 4; j++) m1[j] = (top[j] >> 8) | (top[j + 1] << 24);
+
+  uint32_t mag[6];
+  bool neg;
+  glv_halves(k, m1, r < Q ? 0 : 1, mag, neg);
+
+  // Lane q of the half: windows q + Q t, read from mag >> 5q at bit 5 Q t.
+  const int h = r / Q, q = r % Q;
+  uint32_t sh[6];
+#pragma unroll
+  for (int j = 0; j < 5; j++) sh[j] = __funnelshift_r(mag[j], mag[j + 1], 5 * q);
+  sh[5] = 0;
+  uint32_t raw[TW];
+  gen = prop = 0;
+#pragma unroll
+  for (int t = 0; t < TW; t++) {
+    const int bit = 5 * Q * t, w = bit >> 5, off = bit & 31;
+    uint32_t v = sh[w] >> off;
+    if (off > 27) v |= sh[w + 1] << (32 - off);
+    raw[t] = q + Q * t < kWindows ? v & 31u : 0u;
+    gen |= ((__ballot_sync(kFullWarp, raw[t] >= 17) >> (base + h * Q)) & ((1u << Q) - 1)) << (Q * t);
+    prop |= ((__ballot_sync(kFullWarp, raw[t] >= 16) >> (base + h * Q)) & ((1u << Q) - 1)) << (Q * t);
+  }
+  const unsigned wcarry = (gen + prop) ^ gen ^ prop;  // bit j: the carry into window j
+#pragma unroll
+  for (int t = 0; t < TW; t++) {
+    const int j = q + Q * t;
+    if (j < kWindows) {
+      const int digit = (int)raw[t] + (int)(wcarry >> j & 1u) - 32 * (int)(wcarry >> (j + 1) & 1u);
+      dig[h * kWindows + j][sc] = (int8_t)(neg ? -digit : digit);
+    }
+  }
+  __syncthreads();
+  if (first + kDigitScalars <= m && m % 16 == 0) {
+    for (int v = threadIdx.x; v < 2 * kWindows * 2; v += kDigitScalars * G)
+      *(uint4*)(out + (size_t)(v >> 1) * m + first + 16 * (v & 1)) = *(const uint4*)&dig[v >> 1][16 * (v & 1)];
+  } else {
+    for (int v = threadIdx.x; v < 2 * kWindows * kDigitScalars; v += kDigitScalars * G)
+      if (first + v % kDigitScalars < m) out[(size_t)(v / kDigitScalars) * m + first + v % kDigitScalars] = dig[v / kDigitScalars][v % kDigitScalars];
+  }
 }
 
 // cp.async of 16 bytes from device memory into shared memory (L2 only), and
@@ -478,10 +633,21 @@ int launch_msm(const void* table, const void* inf, const void* digits, void* par
 
 }  // namespace
 
-extern "C" int kzg_glv_digits(const void* scalars, void* out, long long m, void* stream) {  // M1
-  if (!aligned(scalars)) return (int)cudaErrorInvalidValue;
-  glv_digits_kernel<<<blocks(m, 128), 128, 0, (cudaStream_t)stream>>>(
-      (const uint4*)scalars, (int8_t*)out, (uint32_t)m);
+// M1: scalars [m, 8] -> digits [2, 26, m]; `lanes` a scalar: 8 is the
+// lane design, 1 the one-thread design.
+extern "C" int kzg_glv_digits(const void* scalars, void* out, long long m, long long lanes, void* stream) {  // M1
+  if (!aligned(scalars) || !aligned(out) || m < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1:
+      glv_digits_kernel<<<blocks(m, 128), 128, 0, s>>>((const uint4*)scalars, (int8_t*)out, (uint32_t)m);
+      break;
+    case 8:
+      glv_digits_lanes_kernel<8><<<blocks(m, kDigitScalars), kDigitScalars * 8, 0, s>>>(
+          (const uint4*)scalars, (int8_t*)out, (uint32_t)m);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

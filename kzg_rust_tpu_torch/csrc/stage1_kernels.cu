@@ -36,24 +36,43 @@
 // puts L times the warps on the card; the table is laid out by lane.  The
 // decode and the steps after the chain are short and run in every lane.
 //
-// B, four lanes a point: [z^2]P as the halving tree of ops/curve.py
-// sum_points over the 17 chain rows that the nonzero signed base-4 digits
-// of z^2 name (kZ2Digits: |d| = 2 takes 2 4^j P, a -1 digit negates Y as
-// the row is loaded), each complete add spread over the point's lanes
-// (curve.cuh add_lanes); then phi(P) == -[z^2]P by cross products, with
-// infinity passing: the rules of the JAX subgroup_check_from_bases
-// (:166-196).  The tree's order is the plain version's, so the sum has the
-// same projective words and every row the same bit, decoded or not.  Each
-// block ANDs its rows' bits, and A's decode bits, with __syncthreads_and; a
-// block with a failing row stores 0 into the flag.  Bound: operations, 16
-// adds of 12 Fp products and 5 products a point.
+// B: [z^2]P as the halving tree of ops/curve.py sum_points over the 17
+// chain rows that the nonzero signed base-4 digits of z^2 name (kZ2Digits:
+// |d| = 2 takes 2 4^j P, a -1 digit negates Y as the row is loaded); then
+// phi(P) == -[z^2]P by cross products, with infinity passing: the rules of
+// the JAX subgroup_check_from_bases (:166-196).  The tree's pairs are the
+// plain version's, so the sum has the same projective words and every row
+// the same bit, decoded or not.  Each block ANDs its rows' bits, and A's
+// decode bits, with __syncthreads_and; a block with a failing row stores 0
+// into the flag.  Bound: operations, 16 adds of 12 Fp products and 5
+// products a point.
 //
-// What bounds them at the path's widths (2 npad = 128 or 8,192 points) is
-// latency: A's chain of dependent products (above); B's sum is 16
-// dependent adds.  B's lanes cut an add's wait to
-// the two products of each of its two levels that a lane takes (four
-// instead of twelve, the M2 trees' add_lanes) and put four times as many
-// warps on the card.  The launch cost that held stage 1 back (30 launches
+// What bounds A and B at the path's widths (2 npad = 128 or 8,192 points)
+// is latency at 128 points, where the card is mostly idle: A's chain of
+// dependent products (above), and B's sum, which the serial design runs as 16
+// adds one after another over 4 lanes (curve.cuh add_lanes: two products
+// a level on lanes 0-1), about 64 dependent products a point, with 4 of
+// 132 SMs at work.  At 8,192 points the card is full and the work each
+// point runs decides.
+//
+// B's level-parallel design (subgroup_tree_kernel).  17 = 16 + 1, so the
+// tree's odd widths always carry part 16: it is the perfect tree over
+// parts 0-15, then one add of part 16.  A point has P lane groups of G
+// lanes; a level's adds run side by side, one a group (8, 4, 2, 1 and 1
+// adds), each over its group's lanes (add_lanes_from), with a barrier
+// between levels; the first level reads its parts straight from the chain
+// rows, and while group 0 takes the last add, group 1 forms beta X1.  A
+// point keeps 8 slots and P scratch areas in shared memory (2,304 to
+// 5,760 bytes, against the serial design's 2,016); at 8,192 points every
+// block of the (2, 2) variant is resident at once (6 blocks an SM fit by
+// registers and by shared memory, 3.9 are needed).  The variant is the
+// width's (ops/verify_kernels.py
+// subgroup_lanes): 8 groups of 8 lanes where the card is idle (a point
+// waits for 5 levels of two products, and each of 8 lanes forms one
+// second-level operand), 4 groups of 8 in the middle, and 2 groups of 2
+// lanes where it is full (fewer lanes repeat an add's operand work, and
+// the narrowing levels idle less).  The serial design stays as the
+// variant (4, 1), for comparison.  The launch cost that held stage 1 back (30 launches
 // from Python, each at a few microseconds of card time for a fraction of a
 // microsecond of work) is three launches.  Tensor cores and TMA have
 // nothing to offer: every operand is a different 12-word integer.
@@ -73,11 +92,13 @@ using namespace kzg;
 namespace {
 
 constexpr int kVecs = 9;          // 16-byte vectors of a projective point; 3 a coordinate
-constexpr int kScratchVecs = 36;  // of a lane group's scratch (add_lanes: 12 coordinates)
-constexpr int kLanes = 4;         // B's lanes a point
+constexpr int kScratchVecs = 36;  // of a lane group's scratch (add_lanes_from: 12 coordinates)
+constexpr int kLanes = 4;         // the serial B's lanes a point
 constexpr int kWindows = 66;      // signed base-4 windows of z^2
 constexpr int kParts = 17;        // its nonzero digits
-constexpr int kSlots = 10;        // B's points in shared memory a point: 9 tree slots, 1 staged row
+constexpr int kSlots = 10;        // the serial B's points in shared memory a point: 9 tree slots, 1 staged row
+constexpr int kTreeSlots = 8;     // the level-parallel B's: the first level's eight sums
+constexpr int kTreeBlock = 64;    // the level-parallel B's threads a block
 
 // The signed base-4 digits of z^2, least significant first: ops/glv.py
 // recode_base4_signed([Z2]) (the CPU tests parse this array).
@@ -449,6 +470,100 @@ __global__ void __launch_bounds__(T) subgroup_kernel(const uint4* __restrict__ p
   }
 }
 
+// Coordinate c of part k's row for point `at`, Y negated for a negative
+// digit: the level-parallel B reads its parts straight from the chain.
+__device__ __forceinline__ Elt part_coord(const Parts& parts, int k, size_t at, int c) {
+  const Elt v = ldg(parts.row[k] + at * kVecs + 3 * c);
+  return c == 1 && (parts.neg >> k & 1u) ? sub(zero(), v) : v;
+}
+
+// The level-parallel B's barrier between two levels of a point's tree:
+// its lanes, one warp's or (64 lanes) the whole block's.
+template <int LANES>
+__device__ __forceinline__ void level_sync(unsigned point_mask) {
+  if constexpr (LANES > 32) __syncthreads(); else __syncwarp(point_mask);
+}
+
+// Kernel B, level-parallel: P groups of G lanes a point (lanes g G .. g G +
+// G - 1 of the point's G P are group g), kTreeBlock / (G P) points a block.
+// The same halving tree as sum_points over the 17 parts: since 17 = 16 + 1,
+// its odd widths always carry part 16, so it is the perfect tree over
+// parts 0-15 (level 1: slot k = part k + part k + 8 for k < 8, read
+// straight from the chain rows; then slot k += slot k + h for h = 4, 2,
+// 1) and, last, slot 0 += part 16.  A level's adds go to groups k mod P,
+// side by side, each add over its group's G lanes (add_lanes_from), with a
+// barrier between levels; while group 0 takes the last add, group 1 forms
+// beta X1 into slot 1.  Then group 0's lanes 0-3 take the four cross
+// products.  A point needs 8 slots and P scratch areas of shared memory.
+// Every point runs every level (a point past n reads row n - 1 and stores
+// nothing), so every barrier is whole.  The launch bound's minimum of one
+// block an SM leaves ptxas the registers: without it ptxas held the kernel
+// to 128 and spilled.
+template <int G, int P>
+__global__ void __launch_bounds__(kTreeBlock, 1) subgroup_tree_kernel(const uint4* __restrict__ points,
+                                                                 const __grid_constant__ Parts parts,
+                                                                 const uint8_t* __restrict__ dec_ok,
+                                                                 uint8_t* __restrict__ sub_ok,
+                                                                 int* __restrict__ flags, uint32_t n) {
+  constexpr int kPointLanes = G * P;
+  constexpr int kPoints = kTreeBlock / kPointLanes;
+  static_assert(kPoints >= 1 && P >= 2 && kPointLanes >= 4, "whole points a block; group 1 forms beta X1; 4 cross products");
+  extern __shared__ uint4 smem[];
+  const int lane = threadIdx.x % kPointLanes, g = lane / G, r = lane % G;
+  const uint32_t i = blockIdx.x * kPoints + threadIdx.x / kPointLanes;
+  const bool live = i < n;
+  const size_t at = min(i, n - 1);
+  const unsigned mask = ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
+  const unsigned point_mask =
+      kPointLanes >= 32 ? ~0u : ((1u << kPointLanes) - 1) << (threadIdx.x % 32 / kPointLanes * kPointLanes);
+  uint4* const slots = smem + (size_t)(threadIdx.x / kPointLanes) * (kTreeSlots * kVecs + P * kScratchVecs);
+  uint4* const scratch = slots + kTreeSlots * kVecs + g * kScratchVecs;
+
+#pragma unroll 1
+  for (int k = g; k < 8; k += P)
+    add_lanes_from<G>(slots + k * kVecs, [&](int c) { return part_coord(parts, k, at, c); },
+                      [&](int c) { return part_coord(parts, k + 8, at, c); }, scratch, r, mask);
+  level_sync<kPointLanes>(point_mask);
+#pragma unroll 1
+  for (int h = 4; h >= 1; h /= 2) {
+#pragma unroll 1
+    for (int k = g; k < h; k += P) add_lanes<G>(slots + k * kVecs, slots + (k + h) * kVecs, scratch, r, mask);
+    level_sync<kPointLanes>(point_mask);
+  }
+  const uint4* p = points + at * kVecs;
+  if (g == 0) {
+    add_lanes_from<G>(slots, [&](int c) { return lds(slots + 3 * c); },
+                      [&](int c) { return part_coord(parts, kParts - 1, at, c); }, scratch, r, mask);
+  } else if (lane == G) {
+    sts(slots + kVecs, mul(ldg(p), beta_mont()));
+  }
+  level_sync<kPointLanes>(point_mask);
+
+  // phi(P) = (beta X1, Y1, Z1) against -[z^2]P = (X2, -Y2, Z2): the
+  // point's lane 0 takes beta X1 Z2, lane 1 X2 Z1, lane 2 Y1 Z2, lane 3
+  // -Y2 Z1, into group 0's scratch.
+  uint4* const cross = slots + kTreeSlots * kVecs;
+  if (lane < 4) {
+    const Elt left = lane == 0 ? lds(slots + kVecs) : lane == 1 ? lds(slots) : lane == 2 ? ldg(p + 3) : sub(zero(), lds(slots + 3));
+    sts(cross + 3 * lane, mul(left, lane == 0 || lane == 2 ? lds(slots + 6) : ldg(p + 6)));
+  }
+  level_sync<kPointLanes>(point_mask);
+  bool in_group = true;
+  if (lane == 0) {
+    const bool eq_x = equal(lds(cross), lds(cross + 3));
+    const bool eq_y = equal(lds(cross + 6), lds(cross + 9));
+    const bool inf_a = is_zero(ldg(p + 6)), inf_b = is_zero(lds(slots + 6));
+    in_group = (eq_x && eq_y && !inf_a && !inf_b) || (inf_a && inf_b);
+    if (live) sub_ok[i] = in_group;
+  }
+  if (flags != nullptr) {
+    const bool lead = live && lane == 0;
+    if (!__syncthreads_and(!lead || in_group) && threadIdx.x == 0) flags[1] = 0;
+    const bool decoded = !lead || dec_ok == nullptr || dec_ok[i] != 0;
+    if (!__syncthreads_and(decoded) && threadIdx.x == 0) flags[0] = 0;
+  }
+}
+
 bool aligned(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 // The opt-in to more than 48 KB of dynamic shared memory is a function
@@ -488,6 +603,16 @@ int launch_subgroup(const void* points, const Parts& parts, const void* dec_ok, 
   return (int)cudaGetLastError();
 }
 
+template <int G, int P>
+int launch_subgroup_tree(const void* points, const Parts& parts, const void* dec_ok, void* sub_ok, void* flags,
+                         long long n, cudaStream_t s) {
+  constexpr int kPoints = kTreeBlock / (G * P);
+  const size_t smem = (size_t)kPoints * (kTreeSlots * kVecs + P * kScratchVecs) * 16;  // under 48 KB: no opt-in
+  subgroup_tree_kernel<G, P><<<(unsigned)((n + kPoints - 1) / kPoints), kTreeBlock, smem, s>>>(
+      (const uint4*)points, parts, (const uint8_t*)dec_ok, (uint8_t*)sub_ok, (int*)flags, (uint32_t)n);
+  return (int)cudaGetLastError();
+}
+
 bool bad_count(long long n) { return n < 1 || n >= (1LL << 29); }
 
 }  // namespace
@@ -522,10 +647,12 @@ extern "C" int kzg_g1_decompress(const void* comp, void* points, void* ok, void*
 // Kernel B: points [n, 3, 12]; bases and bases2 [66, n, 3, 12] whose rows
 // lie row_stride 32-bit words apart (the even and odd rows of the K4 chain
 // tensor, or any two such tables) -> sub_ok [n] uint8.  dec_ok [n] uint8
-// and flags [2] int32 may be null (no flags then).
+// and flags [2] int32 may be null (no flags then).  The variant: `lanes`
+// an add and `groups` a point, (8, 8), (8, 4), (8, 2) or (2, 2) for the
+// level-parallel tree, (4, 1) for the serial one.
 extern "C" int kzg_g1_subgroup_check(const void* points, const void* bases, const void* bases2,
                                      long long row_stride, const void* dec_ok, void* sub_ok, void* flags,
-                                     long long n, void* stream) {
+                                     long long n, long long lanes, long long groups, void* stream) {
   if (!aligned(points) || !aligned(bases) || !aligned(bases2) || row_stride % 4 || bad_count(n))
     return (int)cudaErrorInvalidValue;
   Parts parts{};
@@ -537,9 +664,18 @@ extern "C" int kzg_g1_subgroup_check(const void* points, const void* bases, cons
     k++;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (block_threads(4 * n)) {
-    case 128: return launch_subgroup<128>(points, parts, dec_ok, sub_ok, flags, n, s);
-    case 64: return launch_subgroup<64>(points, parts, dec_ok, sub_ok, flags, n, s);
-    default: return launch_subgroup<32>(points, parts, dec_ok, sub_ok, flags, n, s);
+  if (lanes < 1 || groups < 1 || groups > 99) return (int)cudaErrorInvalidValue;
+  switch (lanes * 100 + groups) {
+    case 401:
+      switch (block_threads(kLanes * n)) {
+        case 128: return launch_subgroup<128>(points, parts, dec_ok, sub_ok, flags, n, s);
+        case 64: return launch_subgroup<64>(points, parts, dec_ok, sub_ok, flags, n, s);
+        default: return launch_subgroup<32>(points, parts, dec_ok, sub_ok, flags, n, s);
+      }
+    case 808: return launch_subgroup_tree<8, 8>(points, parts, dec_ok, sub_ok, flags, n, s);
+    case 804: return launch_subgroup_tree<8, 4>(points, parts, dec_ok, sub_ok, flags, n, s);
+    case 802: return launch_subgroup_tree<8, 2>(points, parts, dec_ok, sub_ok, flags, n, s);
+    case 202: return launch_subgroup_tree<2, 2>(points, parts, dec_ok, sub_ok, flags, n, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -63,11 +63,11 @@ ENTRY_POINTS = {
     "kzg_proj_add": ("curve_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_proj_double": ("curve_kernels.cu", [_P, _P, _I64, _P]),
     "kzg_proj_double_chain": ("curve_kernels.cu", [_P, _P, _I64, _I64, _P]),
-    "kzg_glv_digits": ("msm_kernels.cu", [_P, _P, _I64, _P]),
+    "kzg_glv_digits": ("msm_kernels.cu", [_P, _P, _I64, _I64, _P]),
     "kzg_msm_glv": ("msm_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _P, _I64, _P]),
-    "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _P]),
+    "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _P]),
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,

@@ -57,6 +57,11 @@ KERNEL_BLOCKS = (128, 256, 384)
 MAX_BLOCKS = 1024
 CPU_ACCUMULATORS = 64
 CPU_BLOCK = 16
+# M1's lanes a scalar, the default first: 8 spreads a scalar over a lane
+# group (32 scalars a block, so a blob's 4096 take 128 SMs); 1 is the
+# one-thread design, kept for comparison.  chip_smoke.py phase 2
+# times both on the H100 (PERF.md).
+GLV_DIGIT_LANES = (8, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -71,16 +76,22 @@ def _halves_const(value: int, n: int, device) -> torch.Tensor:
 def _recode32_plain(mag: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """int64 half-words [M, k] of magnitudes below 2^130, signs [M] ->
     [26, M] signed base-32 digits (a digit above 16 borrows from the next
-    window), the sign folded in."""
+    window), the sign folded in.  The carries by M1's lookahead: a window
+    generates one when its raw value is 17 or more and propagates one when
+    it is 16, and bit j of (gen + prop) ^ gen ^ prop is window j's carry
+    in; the serial recoding's digits."""
     mag = F.pad(mag[..., :10], (0, max(0, 10 - mag.shape[-1])))
-    carry = torch.zeros(mag.shape[:-1], dtype=torch.int64, device=mag.device)
-    digits = []
+    raw = []
     for j in range(GLV_NUM_WINDOWS):
         h, off = divmod(GLV_WINDOW_BITS * j, 16)
-        d = (((mag[..., h] | (mag[..., h + 1] << 16)) >> off) & 31) + carry
-        carry = (d > 16).to(torch.int64)
-        digits.append(d - 32 * carry)
-    out = torch.stack(digits)
+        raw.append(((mag[..., h] | (mag[..., h + 1] << 16)) >> off) & 31)
+    raw = torch.stack(raw)  # [26, M]
+    bit = (1 << torch.arange(GLV_NUM_WINDOWS, dtype=torch.int64, device=mag.device))[:, None]
+    gen = ((raw >= 17) * bit).sum(0)
+    prop = ((raw >= 16) * bit).sum(0)
+    carries = (gen + prop) ^ gen ^ prop
+    shift = torch.arange(GLV_NUM_WINDOWS, dtype=torch.int64, device=mag.device)[:, None]
+    out = raw + ((carries >> shift) & 1) - 32 * ((carries >> (shift + 1)) & 1)
     return torch.where(neg[None], -out, out).to(torch.int8)
 
 
@@ -110,23 +121,26 @@ def glv_digits_plain(k: torch.Tensor) -> torch.Tensor:
     return torch.stack([_recode32_plain(mag1, neg1), _recode32_plain(mag2, neg2)])
 
 
-def glv_digits_from_limbs(k: torch.Tensor) -> torch.Tensor:
+def glv_digits_from_limbs(k: torch.Tensor, lanes: int = GLV_DIGIT_LANES[0]) -> torch.Tensor:
     """M1: canonical Fr words [M, 8] -> digits [2, 26, M] int8 in [-16, 16]
     with ``sum_j d[0, j] 32^j + lam sum_j d[1, j] 32^j == k (mod r)``, both
     halves below 2^128 in magnitude: the scalar recoding of the GLV MSM on
     the device (counterpart of the JAX ``glv_digits_from_limbs``, whose
-    digits it equals)."""
+    digits it equals).  ``lanes`` a scalar, one of
+    :data:`GLV_DIGIT_LANES`, is the kernel's variant."""
     L._check(FR, k)
     if k.dim() != 2:
         raise ValueError(f"glv_digits: expected [M, 8] scalars, got {tuple(k.shape)}")
+    if lanes not in GLV_DIGIT_LANES:
+        raise ValueError(f"glv_digits: {lanes} lanes a scalar, not one of {GLV_DIGIT_LANES}")
     if k.device.type == "cpu":
         return glv_digits_plain(k)
     k = k.contiguous()
     m = k.shape[0]
     out = torch.empty((2, GLV_NUM_WINDOWS, m), dtype=torch.int8, device=k.device)
     if m:
-        L._check_aligned("kzg_glv_digits", k)
-        _build.launch("kzg_glv_digits", k.device, k, out, m)
+        L._check_aligned("kzg_glv_digits", k, out)
+        _build.launch("kzg_glv_digits", k.device, k, out, m, lanes)
     return out
 
 

@@ -59,6 +59,30 @@ def decompress_lanes(n: int, sms: int) -> int:
     return 4 if n * 4 <= 4 * 32 * sms else 2
 
 
+# Kernel B's variants, (lanes an add, lane groups a point), most lanes a
+# point first: the level-parallel tree, then (4, 1), the serial tree (one
+# group a point), kept for comparison.
+SUBGROUP_LANES = ((8, 8), (8, 4), (8, 2), (2, 2), (4, 1))
+
+
+def subgroup_lanes(n: int, sms: int) -> tuple[int, int]:
+    """Kernel B's variant, (lanes an add, lane groups a point), for ``n``
+    points on ``sms`` SMs; a level's adds run side by side, one a group.
+    While the card is mostly idle a point's wait decides: 8 groups of 8
+    lanes (64 lanes a point, 5 levels of two products) up to 2 points an
+    SM, then 4 groups (up to 8 points an SM) and 2 (up to 16).  Past that
+    the card is full and the work each point runs decides: 8 lanes an add
+    leave two idle and each forms a second-level operand, and the narrowing
+    levels idle whole groups, so 2 groups of 2 lanes (4 lanes a point).
+    The cuts are the H100's sweep (132 SMs, PERF.md §6: 8 x 8 fastest at
+    128 and 256 points, 8 x 4 at 512 and 1,024, 8 x 2 at 2,048, 2 x 2 at
+    4,096 and 8,192)."""
+    for lanes, points_an_sm in (((8, 8), 2), ((8, 4), 8), ((8, 2), 16)):
+        if n <= points_an_sm * sms:
+            return lanes
+    return (2, 2)
+
+
 # ---------------------------------------------------------------------------
 # G1 decompression
 # ---------------------------------------------------------------------------
@@ -170,7 +194,7 @@ def subgroup_check_from_bases_plain(points, bases, bases2):
         if d < 0:
             p = torch.stack([p[..., 0, :], L.sub_mod_plain(FP, zero, p[..., 1, :]), p[..., 2, :]], dim=-2)
         parts.append(p)
-    z2p = C.sum_points(torch.stack(parts), add=C.proj_add_plain)  # [N, 3, 12] = [z^2] P
+    z2p = subgroup_tree_plain(torch.stack(parts), SUBGROUP_LANES[0][1])  # [N, 3, 12] = [z^2] P
     phix = mul(points[..., 0, :], FP.const(C.BETA_MONT, points.device))
     phiy = points[..., 1, :]
     phiz = points[..., 2, :]
@@ -180,6 +204,22 @@ def subgroup_check_from_bases_plain(points, bases, bases2):
     inf_a = L.cmp_plain(phiz, zero, 0)
     inf_b = L.cmp_plain(z2, zero, 0)
     return (eq_x & eq_y & ~inf_a & ~inf_b) | (inf_a & inf_b)
+
+
+def subgroup_tree_plain(parts: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain mirror of kernel B's level-parallel tree over the 17 parts
+    ``[17, N, 3, 12]`` with ``groups`` lane groups a point -> [z^2]P
+    ``[N, 3, 12]``.  The halving tree of :func:`.curve.sum_points`: its odd
+    widths (17, 9, 5, 3) always carry part 16, so it is the perfect tree over
+    parts 0-15 (slot k = part k + part k + 8, then slot k += slot k + h for
+    h = 4, 2, 1) and, last, slot 0 += part 16.  A level's adds go to the
+    groups in turn, ``groups`` side by side a round; the words are the
+    tree's whatever the rounds."""
+    first, second = parts[:8], parts[8:16]
+    for h in (8, 4, 2, 1):
+        slots = torch.cat([C.proj_add_plain(first[k : k + groups], second[k : k + groups]) for k in range(0, h, groups)])
+        first, second = slots[: h // 2], slots[h // 2 : h]
+    return C.proj_add_plain(slots[0], parts[16])
 
 
 def _check_bases(points, bases, bases2) -> None:
@@ -192,12 +232,18 @@ def _check_bases(points, bases, bases2) -> None:
             raise ValueError(f"expected int32 {shape} window bases on {points.device}, got {t.dtype} {tuple(t.shape)}")
 
 
-def _subgroup(points, bases, bases2, dec_ok=None, flags=None) -> torch.Tensor:
+def _subgroup(points, bases, bases2, dec_ok=None, flags=None, lanes: tuple[int, int] | None = None) -> torch.Tensor:
     """Kernel B over ``points`` and its window bases; returns sub_ok [N]
     uint8.  With ``flags`` [2] int32 (set to 1 by kernel A), flag 1 is
     cleared where a row fails and, with ``dec_ok`` (A's ok), flag 0 where a
-    row does not decode."""
+    row does not decode.  ``lanes``, one of :data:`SUBGROUP_LANES` (lanes
+    an add, groups a point), is the kernel's variant (by default
+    :func:`subgroup_lanes`)."""
     n = points.shape[0]
+    if lanes is None:
+        lanes = subgroup_lanes(n, L._sm_count(points.device)) if points.device.type == "cuda" else SUBGROUP_LANES[0]
+    if lanes not in SUBGROUP_LANES:
+        raise ValueError(f"kzg_g1_subgroup_check: lanes {lanes}, not one of {SUBGROUP_LANES}")
     row = (n * 3 * FP.nwords, 3 * FP.nwords, FP.nwords, 1)
     if not points.is_contiguous() or bases.stride() != bases2.stride() or bases.stride()[1:] != row[1:]:
         raise ValueError("kzg_g1_subgroup_check: points contiguous, window rows contiguous and alike in stride")
@@ -206,20 +252,21 @@ def _subgroup(points, bases, bases2, dec_ok=None, flags=None) -> torch.Tensor:
     L._check_aligned("kzg_g1_subgroup_check", points, bases, bases2)
     sub_ok = torch.empty(n, dtype=torch.uint8, device=points.device)
     _build.launch(
-        "kzg_g1_subgroup_check", points.device, points, bases, bases2, bases.stride(0), dec_ok, sub_ok, flags, n
+        "kzg_g1_subgroup_check", points.device, points, bases, bases2, bases.stride(0), dec_ok, sub_ok, flags, n, *lanes
     )
     return sub_ok
 
 
-def subgroup_check_from_bases(points, bases, bases2):
+def subgroup_check_from_bases(points, bases, bases2, lanes: tuple[int, int] | None = None):
     """GLV subgroup membership of every point (bool [N]), by
     :func:`subgroup_check_from_bases_plain`'s rules and order.  On a CUDA
     tensor one launch of kernel B (``kzg_g1_subgroup_check``,
-    ``csrc/stage1_kernels.cu``), on a CPU tensor the plain version."""
+    ``csrc/stage1_kernels.cu``; ``lanes`` picks its variant), on a CPU
+    tensor the plain version."""
     _check_bases(points, bases, bases2)
     if points.device.type == "cpu":
         return subgroup_check_from_bases_plain(points, bases, bases2)
-    return _subgroup(points, bases, bases2).view(torch.bool)
+    return _subgroup(points, bases, bases2, lanes=lanes).view(torch.bool)
 
 
 def batch_points_plain(comp_bytes: torch.Tensor):
@@ -234,7 +281,7 @@ def batch_points_plain(comp_bytes: torch.Tensor):
     return bases, bases2, flags
 
 
-def batch_points(comp_bytes: torch.Tensor):
+def batch_points(comp_bytes: torch.Tensor, lanes: tuple[int, int] | None = None):
     """Stage 1.  comp_bytes [2B, 48] uint8, blob-major (row 2b = commitment
     b, row 2b+1 = proof b, matching the stage-2 lane layout; padded rows
     encode infinity) -> (bases, bases2, flags): ``bases``/``bases2``
@@ -243,8 +290,9 @@ def batch_points(comp_bytes: torch.Tensor):
 
     On a CUDA tensor three launches with only allocations between them:
     kernel A decompresses into row 0 of the chain tensor, the K4 chain
-    doubles it into the other 131 rows, kernel B checks the subgroup and
-    writes both flags.  On a CPU tensor the plain versions."""
+    doubles it into the other 131 rows, kernel B (its variant ``lanes``,
+    by default :func:`subgroup_lanes`) checks the subgroup and writes both
+    flags.  On a CPU tensor the plain versions."""
     _check_compressed(comp_bytes)
     if comp_bytes.device.type == "cpu":
         return batch_points_plain(comp_bytes)
@@ -254,7 +302,7 @@ def batch_points(comp_bytes: torch.Tensor):
     dec_ok = _decompress(comp_bytes, chain[0], flags)
     C.proj_double_chain(chain[0], 2 * NUM_WINDOWS - 1, out=chain[1:])
     bases, bases2 = chain[0::2], chain[1::2]
-    _subgroup(chain[0], bases, bases2, dec_ok, flags)
+    _subgroup(chain[0], bases, bases2, dec_ok, flags, lanes)
     return bases, bases2, flags
 
 

@@ -1,4 +1,5 @@
-"""Deterministic insecure trusted setups for tests and the minimal preset.
+"""Deterministic insecure trusted setups for tests and the minimal preset,
+and the GLV recoding's ripple scalars.
 
 The reference ships only the mainnet ceremony output (trusted_setup.txt);
 its README promises a minimal preset as well (reference: README.md:8-9).
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from ..golden import curve as gc
 from ..golden.field import R
+from ..ops import glv
 from ..presets import Preset
 from ..settings import KzgSettings
 from ..utils.domain import compute_roots_of_unity
@@ -72,3 +74,35 @@ def write_insecure_setup_file(path, preset: Preset, tau: int = 0x5EC2E7) -> None
             fh.write(gc.g1_compress(p).hex() + "\n")
         for p in g2_disk:
             fh.write(gc.g2_compress(p).hex() + "\n")
+
+
+def _ripple(runs) -> int:
+    """A magnitude whose base-32 windows, least significant first, are each
+    run's (first, length): a window ``first`` then ``length`` windows of 16,
+    so that after a first of 17 or more a carry crosses the whole run."""
+    windows = []
+    for first, length in runs:
+        windows += [first] + [16] * length
+    return sum(w << (5 * j) for j, w in enumerate(windows))
+
+
+def glv_ripple_scalars() -> list[int]:
+    """16 canonical Fr scalars whose GLV halves (the device split: m1 =
+    floor(k G1C / 2^264)) hold runs of 16-valued base-32 windows with a
+    carry in: k = m (m1 = 0, so k1 = m and k2 = 0) for ripple magnitudes m,
+    the first carrying through 24 windows, and (1 << 125) - 1; k with m1 =
+    m (k2 = -m); r - m; and three more mixed ones."""
+    mags = [
+        _ripple([(17, 24)]),
+        _ripple([(31, 11), (17, 11)]),
+        _ripple([(16, 24)]),  # 16s with no carry in: no borrow at all
+        _ripple([(17, 5), (3, 0), (20, 9), (18, 6)]),
+        (1 << 125) - 1,
+    ]
+    ks = list(mags)
+    for m in mags[:4]:
+        k = -(-(m << 264) // glv.G1C)
+        assert (k * glv.G1C) >> 264 == m and k < glv.HALF_R_CEIL
+        ks.append(k)
+    ks += [R - m for m in mags[:4]]
+    return ks + [R - 1 - mags[0], mags[0] * 32 + 1, mags[1] + (mags[1] << 130)]

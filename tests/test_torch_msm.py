@@ -35,6 +35,7 @@ from kzg_rust_tpu_torch.ops import glv
 from kzg_rust_tpu_torch.ops import jax_state as JS
 from kzg_rust_tpu_torch.ops import limbs as L
 from kzg_rust_tpu_torch.ops import msm as M
+from kzg_rust_tpu_torch.utils.testing import glv_ripple_scalars
 
 rng = random.Random(0x6D5A)
 RR = L.FP.mont_r
@@ -77,10 +78,17 @@ def _value(digits, i):
     return sum(int(digits[j, i]) * 32**j for j in range(M.GLV_NUM_WINDOWS))
 
 
-def test_glv_digits_match_jax():
-    """M1's plain version against the JAX device split, digit for digit;
-    the halves recombine to k and stay below 2^128."""
-    scalars = [rng.randrange(R) for _ in range(16)] + EDGE_SCALARS
+@pytest.mark.parametrize("case", ["random", "ripple"])
+def test_glv_digits_match_jax(case):
+    """M1's plain version (its carries by lookahead) against the JAX device
+    split (serial carries), digit for digit; the halves recombine to k and
+    stay below 2^128.  Both cases end with the edge scalars (0, 1, r - 1,
+    ceil(r / 2) - 1, ceil(r / 2) among them); the ripple case holds runs of
+    16-valued windows with a carry in (utils.testing.glv_ripple_scalars),
+    so that the lookahead crosses many windows.  24 scalars in both, the
+    shape the JAX program is already compiled for."""
+    scalars = ([rng.randrange(R) for _ in range(16)] if case == "random" else glv_ripple_scalars()) + EDGE_SCALARS
+    assert len(scalars) == 24
     jd1, jd2 = JM.glv_digits_from_limbs(jnp.asarray(JL.ints_to_limbs(JFR.nlimbs, scalars)))
     got = M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"))
     assert got.dtype == torch.int8 and got.shape == (2, 26, len(scalars))
@@ -91,6 +99,15 @@ def test_glv_digits_match_jax():
         v1, v2 = _value(got[0], i), _value(got[1], i)
         assert (v1 + v2 * glv.LAM) % R == k
         assert abs(v1) < 2**128 and abs(v2) < 2**128
+    if case == "ripple":
+        # k1 of the first ripple scalar, k2 of its m1 twin: 17, then 24
+        # windows of 16 that each take the carry (16 + 1 - 32) and the
+        # carry out of the run.
+        k1, k2 = got[0, :, 0], got[1, :, 5]
+        assert k1[:26].tolist() == [-15] * 25 + [1]
+        assert k2[:26].tolist() == [15] * 25 + [-1]
+    with pytest.raises(ValueError, match="lanes"):
+        M.glv_digits_from_limbs(L.to_device(L.FR, scalars, "cpu"), lanes=2)
 
 
 def test_recode_glv_host_matches_jax():
@@ -294,3 +311,7 @@ def test_kernel_constants_match():
     assert M.ACCUMULATORS_PER_SM % M.BLOCK_THREADS == 0
     assert int(re.search(r"constexpr int kMaxBlocks = (\d+);", text).group(1)) == M.MAX_BLOCKS
     assert _build.ENTRY_POINTS["kzg_msm_glv"][0] == "msm_kernels.cu"
+    digit_cases = re.findall(r"case (\d+):\s*glv_digits(?:_lanes_kernel<(\d+)>|_kernel)<<<", text)
+    assert [int(c) for c, _ in digit_cases] == sorted(M.GLV_DIGIT_LANES)
+    assert all(not g or g == c for c, g in digit_cases)
+    assert _build.ENTRY_POINTS["kzg_glv_digits"][0] == "msm_kernels.cu"

@@ -315,15 +315,59 @@ def _stage1_source():
     return open(f"{_build.CSRC}/stage1_kernels.cu").read()
 
 
-def test_stage1_kernel_digits_match():
+@pytest.fixture(scope="module")
+def z2_parts():
+    """17 parts as kernel B's tree takes them ([17, 3, 3, 12] projective
+    words, each row its own representation: a random Z), with a point
+    added to itself, one to its negation and infinity among them; and the
+    JAX package's _reduce_axis0 of them (eager, the stage's own tree)."""
+    base = [gc.g1_mul(gc.G1_GENERATOR, rng.randrange(1, R)) for _ in range(16)]
+    pts = base + [base[3]]
+    pts[9] = gc.g1_neg(base[1])  # level 1 adds part 9 onto part 1: P + (-P)
+    pts[12] = base[4]  # and part 12 onto part 4: P + P
+    pts[6] = None
+    vals = []
+    for i, p in enumerate(pts * 3):
+        lam = rng.randrange(1, P) * L.FP.mont_r % P
+        vals += [0, lam, 0] if p is None else [p[0] * lam % P, p[1] * lam % P, lam]
+    parts = torch.from_numpy(L.ints_to_words(L.FP.nwords, vals)).reshape(3, 17, 3, 12).transpose(0, 1).contiguous()
+    jparts = JL.ints_to_limbs(32, vals).reshape(3, 17, 3, 32).transpose(1, 0, 2, 3)
+    want = JS.points_from_jax(np.asarray(JV._reduce_axis0(jnp.asarray(jparts))))
+    return parts, want
+
+
+@pytest.mark.parametrize("lanes", [(8, 8), (8, 4), (8, 2), (2, 2), (4, 1)], ids=lambda v: f"{v[0]}x{v[1]}")
+def test_stage1_kernel_digits_match(lanes, z2_parts):
     """Kernel B's compile-time digits are the signed base-4 recoding of z^2
-    that the plain version and the JAX package use (17 nonzero)."""
-    body = re.search(r"constexpr int kZ2Digits\[kWindows\] = \{([^}]*)\}", _stage1_source()).group(1)
+    that the plain version and the JAX package use (17 nonzero).  Its tree
+    with this variant's lane groups (the plain mirror, verify_kernels.
+    subgroup_tree_plain) gives [z^2]P the words of curve.sum_points and
+    the JAX _reduce_axis0 on the same 17 parts; the entry point dispatches
+    the variant (lanes an add, groups a point); subgroup_lanes takes 8 x 8
+    up to 2 points an SM, 8 x 4 up to 8, 8 x 2 up to 16, then 2 x 2."""
+    text = _stage1_source()
+    body = re.search(r"constexpr int kZ2Digits\[kWindows\] = \{([^}]*)\}", text).group(1)
     digits = [int(d) for d in body.replace("\n", " ").split(",")]
     want = glv.recode_base4_signed([glv.Z2])[:, 0].tolist()
     assert digits == want == V._Z2_DIGITS.tolist() == JV._Z2_DIGITS.tolist()
-    assert sum(1 for d in digits if d) == int(re.search(r"constexpr int kParts = (\d+);", _stage1_source()).group(1))
+    assert sum(1 for d in digits if d) == int(re.search(r"constexpr int kParts = (\d+);", text).group(1))
     assert sum(d * 4**j for j, d in enumerate(digits)) == glv.Z2
+
+    parts, jax_sum = z2_parts
+    width, groups = lanes
+    got = V.subgroup_tree_plain(parts, groups)
+    assert torch.equal(got, C.sum_points(parts, add=C.proj_add_plain))
+    assert torch.equal(got, jax_sum)
+    assert C.proj_to_points(got)[0] is not None
+    assert lanes in V.SUBGROUP_LANES
+    if groups == 1:
+        assert re.search(rf"case {width}0{groups}:\s*switch \(block_threads\(kLanes \* n\)\)", text)
+        assert int(re.search(r"constexpr int kLanes = (\d+);", text).group(1)) == width
+    else:
+        assert f"case {width}0{groups}: return launch_subgroup_tree<{width}, {groups}>(" in text
+    widths = (128, 264, 265, 1056, 1057, 2112, 2113, 8192)
+    want = [(8, 8), (8, 8), (8, 4), (8, 4), (8, 2), (8, 2), (2, 2), (2, 2)]
+    assert [V.subgroup_lanes(n, 132) for n in widths] == want
 
 
 def test_stage1_kernel_constants_match():
@@ -407,4 +451,6 @@ def test_stage1_wrappers_check_their_operands(rows):
         V.subgroup_check_from_bases(chain[0], chain[0::2], chain[1::2])
     with pytest.raises(ValueError, match="stride"):
         V.subgroup_check_from_bases(chain[0], chain[0::2], chain[1::2].contiguous())
+    with pytest.raises(ValueError, match="lanes"):
+        V.subgroup_check_from_bases(chain[0], chain[0::2], chain[1::2], lanes=(4, 4))
     assert all(v == 0 for v in _build.LAUNCHES.values())
