@@ -76,22 +76,16 @@ def _halves_const(value: int, n: int, device) -> torch.Tensor:
 def _recode32_plain(mag: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """int64 half-words [M, k] of magnitudes below 2^130, signs [M] ->
     [26, M] signed base-32 digits (a digit above 16 borrows from the next
-    window), the sign folded in.  The carries by M1's lookahead: a window
-    generates one when its raw value is 17 or more and propagates one when
-    it is 16, and bit j of (gen + prop) ^ gen ^ prop is window j's carry
-    in; the serial recoding's digits."""
+    window), the sign folded in."""
     mag = F.pad(mag[..., :10], (0, max(0, 10 - mag.shape[-1])))
-    raw = []
+    carry = torch.zeros(mag.shape[:-1], dtype=torch.int64, device=mag.device)
+    digits = []
     for j in range(GLV_NUM_WINDOWS):
         h, off = divmod(GLV_WINDOW_BITS * j, 16)
-        raw.append(((mag[..., h] | (mag[..., h + 1] << 16)) >> off) & 31)
-    raw = torch.stack(raw)  # [26, M]
-    bit = (1 << torch.arange(GLV_NUM_WINDOWS, dtype=torch.int64, device=mag.device))[:, None]
-    gen = ((raw >= 17) * bit).sum(0)
-    prop = ((raw >= 16) * bit).sum(0)
-    carries = (gen + prop) ^ gen ^ prop
-    shift = torch.arange(GLV_NUM_WINDOWS, dtype=torch.int64, device=mag.device)[:, None]
-    out = raw + ((carries >> shift) & 1) - 32 * ((carries >> (shift + 1)) & 1)
+        d = (((mag[..., h] | (mag[..., h + 1] << 16)) >> off) & 31) + carry
+        carry = (d > 16).to(torch.int64)
+        digits.append(d - 32 * carry)
+    out = torch.stack(digits)
     return torch.where(neg[None], -out, out).to(torch.int8)
 
 

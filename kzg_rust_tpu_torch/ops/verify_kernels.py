@@ -194,7 +194,7 @@ def subgroup_check_from_bases_plain(points, bases, bases2):
         if d < 0:
             p = torch.stack([p[..., 0, :], L.sub_mod_plain(FP, zero, p[..., 1, :]), p[..., 2, :]], dim=-2)
         parts.append(p)
-    z2p = subgroup_tree_plain(torch.stack(parts), SUBGROUP_LANES[0][1])  # [N, 3, 12] = [z^2] P
+    z2p = C.sum_points(torch.stack(parts), add=C.proj_add_plain)  # [N, 3, 12] = [z^2] P
     phix = mul(points[..., 0, :], FP.const(C.BETA_MONT, points.device))
     phiy = points[..., 1, :]
     phiz = points[..., 2, :]
@@ -204,22 +204,6 @@ def subgroup_check_from_bases_plain(points, bases, bases2):
     inf_a = L.cmp_plain(phiz, zero, 0)
     inf_b = L.cmp_plain(z2, zero, 0)
     return (eq_x & eq_y & ~inf_a & ~inf_b) | (inf_a & inf_b)
-
-
-def subgroup_tree_plain(parts: torch.Tensor, groups: int) -> torch.Tensor:
-    """Plain mirror of kernel B's level-parallel tree over the 17 parts
-    ``[17, N, 3, 12]`` with ``groups`` lane groups a point -> [z^2]P
-    ``[N, 3, 12]``.  The halving tree of :func:`.curve.sum_points`: its odd
-    widths (17, 9, 5, 3) always carry part 16, so it is the perfect tree over
-    parts 0-15 (slot k = part k + part k + 8, then slot k += slot k + h for
-    h = 4, 2, 1) and, last, slot 0 += part 16.  A level's adds go to the
-    groups in turn, ``groups`` side by side a round; the words are the
-    tree's whatever the rounds."""
-    first, second = parts[:8], parts[8:16]
-    for h in (8, 4, 2, 1):
-        slots = torch.cat([C.proj_add_plain(first[k : k + groups], second[k : k + groups]) for k in range(0, h, groups)])
-        first, second = slots[: h // 2], slots[h // 2 : h]
-    return C.proj_add_plain(slots[0], parts[16])
 
 
 def _check_bases(points, bases, bases2) -> None:

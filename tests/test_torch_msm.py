@@ -78,11 +78,25 @@ def _value(digits, i):
     return sum(int(digits[j, i]) * 32**j for j in range(M.GLV_NUM_WINDOWS))
 
 
+def _recode32_lookahead(mag: int) -> list[int]:
+    """M1's recoding of a magnitude as csrc/msm_kernels.cu
+    glv_digits_lanes_kernel resolves its carries: a window generates a
+    carry when its raw value is 17 or more and passes one on when it is 16,
+    and bit j of (gen + prop) ^ gen ^ prop, prop = raw >= 16, is window j's
+    carry in."""
+    raw = [(mag >> (5 * j)) & 31 for j in range(M.GLV_NUM_WINDOWS)]
+    gen = sum(1 << j for j, w in enumerate(raw) if w >= 17)
+    prop = sum(1 << j for j, w in enumerate(raw) if w >= 16)
+    carries = (gen + prop) ^ gen ^ prop
+    return [w + (carries >> j & 1) - 32 * (carries >> (j + 1) & 1) for j, w in enumerate(raw)]
+
+
 @pytest.mark.parametrize("case", ["random", "ripple"])
 def test_glv_digits_match_jax(case):
-    """M1's plain version (its carries by lookahead) against the JAX device
-    split (serial carries), digit for digit; the halves recombine to k and
-    stay below 2^128.  Both cases end with the edge scalars (0, 1, r - 1,
+    """M1's plain version (serial carries) against the JAX device split,
+    digit for digit, and against the kernel's carry lookahead (mirrored
+    here) on the same halves; the halves recombine to k and stay below
+    2^128.  Both cases end with the edge scalars (0, 1, r - 1,
     ceil(r / 2) - 1, ceil(r / 2) among them); the ripple case holds runs of
     16-valued windows with a carry in (utils.testing.glv_ripple_scalars),
     so that the lookahead crosses many windows.  24 scalars in both, the
@@ -99,6 +113,9 @@ def test_glv_digits_match_jax(case):
         v1, v2 = _value(got[0], i), _value(got[1], i)
         assert (v1 + v2 * glv.LAM) % R == k
         assert abs(v1) < 2**128 and abs(v2) < 2**128
+        for half, v in ((0, v1), (1, v2)):
+            sign = -1 if v < 0 else 1
+            assert got[half, :, i].tolist() == [sign * d for d in _recode32_lookahead(abs(v))], (i, half)
     if case == "ripple":
         # k1 of the first ripple scalar, k2 of its m1 twin: 17, then 24
         # windows of 16 that each take the carry (16 + 1 - 32) and the

@@ -316,11 +316,12 @@ def _stage1_source():
 
 
 @pytest.fixture(scope="module")
-def z2_parts():
-    """17 parts as kernel B's tree takes them ([17, 3, 3, 12] projective
-    words, each row its own representation: a random Z), with a point
-    added to itself, one to its negation and infinity among them; and the
-    JAX package's _reduce_axis0 of them (eager, the stage's own tree)."""
+def z2_sums():
+    """[z^2]P's tree over 17 parts as kernel B takes them ([17, 3, 3, 12]
+    projective words, each row its own representation: a random Z), with a
+    point added to itself, one to its negation and infinity among them:
+    the port's curve.sum_points, which the plain version runs, and the JAX
+    package's _reduce_axis0 (eager, the stage's own tree)."""
     base = [gc.g1_mul(gc.G1_GENERATOR, rng.randrange(1, R)) for _ in range(16)]
     pts = base + [base[3]]
     pts[9] = gc.g1_neg(base[1])  # level 1 adds part 9 onto part 1: P + (-P)
@@ -333,18 +334,17 @@ def z2_parts():
     parts = torch.from_numpy(L.ints_to_words(L.FP.nwords, vals)).reshape(3, 17, 3, 12).transpose(0, 1).contiguous()
     jparts = JL.ints_to_limbs(32, vals).reshape(3, 17, 3, 32).transpose(1, 0, 2, 3)
     want = JS.points_from_jax(np.asarray(JV._reduce_axis0(jnp.asarray(jparts))))
-    return parts, want
+    return C.sum_points(parts, add=C.proj_add_plain), want
 
 
 @pytest.mark.parametrize("lanes", [(8, 8), (8, 4), (8, 2), (2, 2), (4, 1)], ids=lambda v: f"{v[0]}x{v[1]}")
-def test_stage1_kernel_digits_match(lanes, z2_parts):
+def test_stage1_kernel_digits_match(lanes, z2_sums):
     """Kernel B's compile-time digits are the signed base-4 recoding of z^2
-    that the plain version and the JAX package use (17 nonzero).  Its tree
-    with this variant's lane groups (the plain mirror, verify_kernels.
-    subgroup_tree_plain) gives [z^2]P the words of curve.sum_points and
-    the JAX _reduce_axis0 on the same 17 parts; the entry point dispatches
-    the variant (lanes an add, groups a point); subgroup_lanes takes 8 x 8
-    up to 2 points an SM, 8 x 4 up to 8, 8 x 2 up to 16, then 2 x 2."""
+    that the plain version and the JAX package use (17 nonzero).  The
+    plain version's tree (curve.sum_points) gives [z^2]P the words of the
+    JAX _reduce_axis0 on the same 17 parts; the entry point dispatches the
+    variant (lanes an add, groups a point); subgroup_lanes takes 8 x 8 up
+    to 2 points an SM, 8 x 4 up to 8, 8 x 2 up to 16, then 2 x 2."""
     text = _stage1_source()
     body = re.search(r"constexpr int kZ2Digits\[kWindows\] = \{([^}]*)\}", text).group(1)
     digits = [int(d) for d in body.replace("\n", " ").split(",")]
@@ -353,13 +353,11 @@ def test_stage1_kernel_digits_match(lanes, z2_parts):
     assert sum(1 for d in digits if d) == int(re.search(r"constexpr int kParts = (\d+);", text).group(1))
     assert sum(d * 4**j for j, d in enumerate(digits)) == glv.Z2
 
-    parts, jax_sum = z2_parts
-    width, groups = lanes
-    got = V.subgroup_tree_plain(parts, groups)
-    assert torch.equal(got, C.sum_points(parts, add=C.proj_add_plain))
+    got, jax_sum = z2_sums
     assert torch.equal(got, jax_sum)
     assert C.proj_to_points(got)[0] is not None
     assert lanes in V.SUBGROUP_LANES
+    width, groups = lanes
     if groups == 1:
         assert re.search(rf"case {width}0{groups}:\s*switch \(block_threads\(kLanes \* n\)\)", text)
         assert int(re.search(r"constexpr int kLanes = (\d+);", text).group(1)) == width
