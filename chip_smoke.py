@@ -83,6 +83,26 @@ Phases, any failure of which exits non-zero without the final line:
    context with no launch; with ``KZG_TORCH_PROVER=host`` (and
    ``KZG_TORCH_EVAL=host``) the 94 single-blob vectors; host-clock times
    (median of 3) printed beside the card's on one line;
+3d. ``auto`` placement on the same backend: ``KZG_TORCH_EVAL=auto`` at each
+   n and ``KZG_TORCH_PROVER=auto`` for a commit and a proof, each decision
+   printed with its terms (link, upload, the card's estimate, the host's
+   budget) and its time; where phases 3-3c measured one side faster in
+   every run, auto must pick it; the 22 batch vectors and the lanes give
+   the same outcomes under device, host and auto, and so do the commit and
+   the proof; the line through the device path's end-to-end times, which
+   ``backends/placement.py``'s constants are fitted to;
+3e. the 92 mainnet ``verify_kzg_proof`` vectors and every
+   ``tests/vectors_minimal`` vector (the minimal setup: the kernels at its
+   4-element shapes) under device, host and auto placement, every outcome
+   the vector's;
+3f. the sharded paths on a mesh of two shards on the one card: every lane
+   of the batch at n = 64 and 512, the three stages alone at n = 64, a
+   commit and a proof on the point mesh, the split MSM and the
+   domain-split ``barycentric_eval``, each equal to the unsharded path's
+   (flags, affine points, outcomes) and timed beside it;
+3g. ``parallel/distributed.py`` as a world of one rank over NCCL on two
+   local shards of the card: the 2-axis stages at n = 64 and MSM at
+   mainnet width, equal to the unsharded path's;
 4. check that every kernel of the path launched in the n = 64 batch, one
    commit or one proof, that at every n a valid batch made the launches
    ``batch_launches`` counts, stage 1 being exactly kernel A, the
@@ -104,6 +124,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -127,6 +148,9 @@ BATCH_SIZES = (64, 512, 4096)
 # whose blocks the allocated count leaves out), from an emptied cache; the
 # first card runs of the chunked path reserved 0.91 and 0.98 GB.
 BARY_SWEEP = (64, 128, 256, 512)
+# The batch sizes the two-shard mesh runs (phase 3f); the first also runs
+# the stages alone there and in the one-rank world (phase 3g).
+SHARDED_SIZES = (64, 512)
 STAGE1_SWEEP = (512, 1024, 2048, "full")
 PEAK_MEM_CAP = 1_200_000_000
 # Built and held against their plain versions, but no counted run (an
@@ -1649,9 +1673,10 @@ def check_engine(backend, settings) -> dict:
 
 
 def read_vector(path: str):
-    """The vectors' YAML is flow lists of quoted hex strings and quoted
-    strings in, and out a quoted string, a list of them, or
-    true/false/null; read with regular expressions."""
+    """The vectors' YAML is quoted hex strings and lists of them (flow
+    lists in the mainnet sets, block lists in the minimal ones) in, and out
+    a quoted string, a list of them, or true/false/null; read with regular
+    expressions."""
     with open(path) as fh:
         text = fh.read()
     inp, out = text.split("\noutput:")
@@ -1659,9 +1684,11 @@ def read_vector(path: str):
     for m in re.finditer(r"(\w+):\s*(\[[^\]]*\]|'[^']*')", inp):
         strs = re.findall(r"'([^']*)'", m.group(2))
         fields[m.group(1)] = strs if m.group(2).startswith("[") else strs[0]
+    for m in re.finditer(r"(?m)^[ \t]+(\w+):[ \t]*\n((?:[ \t]+- '[^']*'[ \t]*(?:\n|$))+)", inp):
+        fields[m.group(1)] = re.findall(r"'([^']*)'", m.group(2))
     out = out.strip()
     strs = re.findall(r"'([^']*)'", out)
-    if out.startswith("["):
+    if out.startswith(("[", "-")):
         return fields, strs
     return fields, strs[0] if strs else {"true": True, "false": False, "null": None}[out]
 
@@ -1722,6 +1749,42 @@ def batches_alone(reps: int = 5) -> dict:
     return out
 
 
+def batch_lanes(triples, pick, sub_point, host: bool = False) -> dict:
+    """The five outcome lanes of the batch of ``triples`` at ``pick``, the
+    bad row near its end: lane -> ((blobs, commitments, proofs), the
+    outcome, or a message the error must hold; with ``host``, the engine's
+    message for a malformed point)."""
+    from kzg_rust_tpu_torch import Blob, Bytes48
+    from kzg_rust_tpu_torch.messages import (
+        MSG_INVALID_BYTES32,
+        MSG_INVALID_COMPRESSED_G1,
+        MSG_MALFORMED_COMMITMENT,
+        MSG_NOT_IN_SUBGROUP,
+    )
+
+    blobs = [triples[i][0] for i in pick]
+    cs = [triples[i][1] for i in pick]
+    ps = [triples[i][2] for i in pick]
+    bad = len(pick) - BAD_FROM_END
+    # A valid proof of another blob (two of the six share the infinity proof).
+    swapped = list(ps)
+    swapped[bad] = next(t[2] for t in triples if t[2] != ps[bad])
+    noncanon = list(blobs)
+    noncanon[bad] = Blob(b"\xff" * 32 + bytes(blobs[bad])[32:])
+    malformed = list(cs)
+    malformed[bad] = Bytes48(b"\x11" * 48)
+    nonsub = list(cs)
+    nonsub[bad] = sub_point
+    return {
+        "valid": ((blobs, cs, ps), True),
+        "swapped_proof": ((blobs, cs, swapped), False),
+        "noncanonical_blob": ((noncanon, cs, ps), MSG_INVALID_BYTES32),
+        # The engine names the point (as the JAX package's host path does).
+        "malformed_point": ((blobs, malformed, ps), MSG_MALFORMED_COMMITMENT if host else MSG_INVALID_COMPRESSED_G1),
+        "non_subgroup_point": ((blobs, nonsub, ps), MSG_NOT_IN_SUBGROUP),
+    }
+
+
 def main_path(backend, settings, host: bool = False) -> dict:
     """The verify path on ``backend``: on the card, or with ``host`` in the
     engine's fused context (``KZG_TORCH_EVAL=host`` set by the caller),
@@ -1732,12 +1795,6 @@ def main_path(backend, settings, host: bool = False) -> dict:
     from kzg_rust_tpu_torch import Blob, Bytes48, Kzg, KzgError
     from kzg_rust_tpu_torch.backends.golden_backend import GoldenBackend
     from kzg_rust_tpu_torch.errors import BadArgs
-    from kzg_rust_tpu_torch.messages import (
-        MSG_INVALID_BYTES32,
-        MSG_INVALID_COMPRESSED_G1,
-        MSG_MALFORMED_COMMITMENT,
-        MSG_NOT_IN_SUBGROUP,
-    )
     from kzg_rust_tpu_torch.backends import torch_backend as TB
     from kzg_rust_tpu_torch.ops import _build
     from kzg_rust_tpu_torch.ops import verify_kernels as V
@@ -1774,28 +1831,8 @@ def main_path(backend, settings, host: bool = False) -> dict:
 
     small, large = BATCH_SIZES[0], BATCH_SIZES[-1]
     for n in BATCH_SIZES:
-        pick = nrng.integers(0, len(triples), size=n)
-        blobs = [triples[i][0] for i in pick]
-        cs = [triples[i][1] for i in pick]
-        ps = [triples[i][2] for i in pick]
-        bad = n - BAD_FROM_END
-        # A valid proof of another blob (two of the six share the infinity proof).
-        swapped = list(ps)
-        swapped[bad] = next(t[2] for t in triples if t[2] != ps[bad])
-        noncanon = list(blobs)
-        noncanon[bad] = Blob(b"\xff" * 32 + bytes(blobs[bad])[32:])
-        malformed = list(cs)
-        malformed[bad] = Bytes48(b"\x11" * 48)
-        nonsub = list(cs)
-        nonsub[bad] = sub_point
-        lanes = {
-            "valid": ((blobs, cs, ps), True),
-            "swapped_proof": ((blobs, cs, swapped), False),
-            "noncanonical_blob": ((noncanon, cs, ps), MSG_INVALID_BYTES32),
-            # The engine names the point (as the JAX package's host path does).
-            "malformed_point": ((blobs, malformed, ps), MSG_MALFORMED_COMMITMENT if host else MSG_INVALID_COMPRESSED_G1),
-            "non_subgroup_point": ((blobs, nonsub, ps), MSG_NOT_IN_SUBGROUP),
-        }
+        lanes = batch_lanes(triples, nrng.integers(0, len(triples), size=n), sub_point, host)
+        blobs, cs, ps = lanes["valid"][0]
         cross = n == small and not host
         backends = [("torch", backend)] + ([("golden", golden)] if cross else [])
         for lane, (args, expect) in lanes.items():
@@ -1860,6 +1897,7 @@ def main_path(backend, settings, host: bool = False) -> dict:
             Kzg.verify_blob_kzg_proof_batch(blobs, cs, ps, settings, backend)
         runs = timed_batches(backend, settings, (blobs, cs, ps), host)
         report["e2e_ms"][n] = runs["e2e_ms"]
+        report.setdefault("e2e_runs_ms", {})[n] = runs["e2e_runs_ms"]
         report["blobs_per_s"][n] = n / (report["e2e_ms"][n] / 1e3)
         if host:
             log(f"{where}: n={n}: end to end {report['e2e_ms'][n]:.1f} ms = {report['blobs_per_s'][n]:.1f} blobs/s (host clock, median of 3)")
@@ -2520,6 +2558,7 @@ def prover_path(backend, settings) -> dict:
                 for s, v in backend.host_ms.items():
                     steps.setdefault(s, []).append(v)
         report["host_ms"][name] = statistics.median(times)
+        report.setdefault("runs_ms", {})[name] = times
         if stages:
             report["stage_ms"][name] = {s: statistics.median(v) for s, v in stages.items()}
             report["host_steps_ms"][name] = {s: statistics.median(v) for s, v in steps.items()}
@@ -2584,12 +2623,412 @@ def host_placement(backend, settings) -> dict:
                 fn()
                 times.append((time.perf_counter() - t) * 1e3)
             report["host_ms"][name] = statistics.median(times)
+            report.setdefault("runs_ms", {})[name] = times
         if any(_build.LAUNCHES.values()):
             raise AssertionError(f"host placement launched kernels: {_build.LAUNCHES}")
     finally:
         del os.environ["KZG_TORCH_EVAL"], os.environ["KZG_TORCH_PROVER"]
     log(f"host placement: the prover calls give the card's bytes, with no launch; host clock, median of 3: {json.dumps(report['host_ms'])}")
     return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d-3g: auto placement, the vectors by placement, a mesh, a world
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def placed(**env):
+    """The environment variables ``env`` set for the block, then restored."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def outcome(fn):
+    """``fn()``'s value, or the class name of the KzgError it raised."""
+    from kzg_rust_tpu_torch import KzgError
+
+    try:
+        return fn()
+    except KzgError as e:
+        return type(e).__name__
+
+
+def faster_side(device_runs, host_runs):
+    """``device`` or ``host`` where every run of one side beat every run of
+    the other (faster by more than the runs' spread), else None."""
+    if max(device_runs) < min(host_runs):
+        return "device"
+    if max(host_runs) < min(device_runs):
+        return "host"
+    return None
+
+
+def fit_line(points) -> tuple[float, float]:
+    """The least-squares (intercept, slope) through (x, y) points."""
+    mx = statistics.mean(x for x, _ in points)
+    my = statistics.mean(y for _, y in points)
+    slope = sum((x - mx) * (y - my) for x, y in points) / sum((x - mx) ** 2 for x, _ in points)
+    return my - slope * mx, slope
+
+
+def sampled_lanes(n_sizes, host: bool = False) -> dict:
+    """n -> the five lanes of main_path's batch at n (the same seeded picks)."""
+    import numpy as np
+
+    from kzg_rust_tpu_torch import Bytes48
+
+    triples = valid_triples()
+    nrng = np.random.default_rng(SEED)
+    sub_point = Bytes48(out_of_subgroup_compressed(random.Random(SEED)))
+    picks = {n: nrng.integers(0, len(triples), size=n) for n in BATCH_SIZES}
+    return {n: batch_lanes(triples, picks[n], sub_point, host) for n in n_sizes}
+
+
+def batch_outcomes(backend, settings, lanes) -> dict:
+    """The 22 mainnet batch vectors and every lane of ``lanes`` through
+    ``backend``: name -> its outcome (a bool or an error's class)."""
+    from kzg_rust_tpu_torch import Blob, Bytes48, Kzg
+
+    out = {}
+    for f in sorted(glob.glob(os.path.join(ROOT, "tests", "vectors", "verify_blob_kzg_proof_batch", "*", "*", "data.yaml"))):
+        inp, _ = read_vector(f)
+        out[os.path.relpath(f, ROOT)] = outcome(
+            lambda: Kzg.verify_blob_kzg_proof_batch(
+                [Blob.from_hex(b) for b in inp["blobs"]], [Bytes48.from_hex(c) for c in inp["commitments"]], [Bytes48.from_hex(p) for p in inp["proofs"]], settings, backend
+            )
+        )
+    for n, by_lane in lanes.items():
+        for lane, (args, _) in by_lane.items():
+            out[f"n={n}/{lane}"] = outcome(lambda: Kzg.verify_blob_kzg_proof_batch(*args, settings, backend))
+    return out
+
+
+def auto_placement(backend, settings, report, prover, host) -> dict:
+    """``KZG_TORCH_EVAL=auto`` at each n and ``KZG_TORCH_PROVER=auto`` for a
+    commit and a proof, on the backend of the other phases: each decision
+    with its terms, its end-to-end time (host clock, median of 3), held
+    against the same run's device and host times (phases 3, 3b, 3c): where
+    one side beat the other in every run, auto must pick it.  The outcomes
+    of the 22 batch vectors and the lanes under auto equal both explicit
+    placements'.  Also the line through the device path's end-to-end times
+    at each n, which the placement constants are fitted to."""
+    from kzg_rust_tpu_torch import Bytes32, Kzg
+    from kzg_rust_tpu_torch.backends import placement as P
+
+    fixed_ms, per_blob_ms = fit_line([(n, report["e2e_ms"][n]) for n in BATCH_SIZES])
+    out = {
+        "fit": {"fixed_ms": fixed_ms, "per_blob_us": per_blob_ms * 1e3, "proof_ms": prover["host_ms"]["proof"]},
+        "in_use": {"fixed_ms": P.AUTO_DEVICE_FIXED_S * 1e3, "per_blob_us": P.AUTO_DEVICE_PER_BLOB_S * 1e6, "proof_ms": P.AUTO_DEVICE_PROVE_S * 1e3},
+        "verify": {},
+        "prover": {},
+    }
+    log(f"auto: the device path's end to end fits {fixed_ms:.2f} ms + {per_blob_ms * 1e3:.2f} us a blob (least squares over n = {BATCH_SIZES}), a proof {prover['host_ms']['proof']:.2f} ms; in use: {json.dumps(out['in_use'])}")
+
+    lanes = sampled_lanes(BATCH_SIZES)
+    with placed(KZG_TORCH_EVAL="auto"):
+        for n in BATCH_SIZES:
+            backend.last_placement = {}
+            runs = timed_batches(backend, settings, lanes[n]["valid"][0], host=True)
+            decision = dict(backend.last_placement)
+            if decision.get("op") != "verify_batch" or decision.get("n") != n:
+                raise AssertionError(f"auto: n={n}: no decision recorded ({decision})")
+            dev_runs, host_runs = report["e2e_runs_ms"][n], host["verify"]["e2e_runs_ms"][n]
+            side = faster_side(dev_runs, host_runs)
+            if side is not None and decision["choice"] != side:
+                raise AssertionError(f"auto: n={n} picked {decision['choice']}, but this run measured the {side} faster in every run: device {dev_runs}, host {host_runs}")
+            out["verify"][n] = {"decision": decision, "faster": side, "auto_ms": runs["e2e_ms"], "auto_runs_ms": runs["e2e_runs_ms"], "device_runs_ms": dev_runs, "host_runs_ms": host_runs}
+            log(f"auto: n={n}: {json.dumps(decision)}; measured device {dev_runs} ms, host {host_runs} ms (faster beyond the spread: {side}); under auto {runs['e2e_ms']:.2f} ms (median of 3)")
+
+    results = {}
+    for mode in ("device", "host", "auto"):
+        with placed(KZG_TORCH_EVAL=mode):
+            results[mode] = batch_outcomes(backend, settings, lanes)
+    differ = sorted(k for k in results["device"] if not results["device"][k] == results["host"][k] == results["auto"][k])
+    if differ:
+        raise AssertionError(f"auto: outcomes differ across placements: {[(k, results['device'][k], results['host'][k], results['auto'][k]) for k in differ]}")
+    out["outcomes_equal"] = len(results["auto"])
+    log(f"auto: {len(results['auto'])} batch outcomes (the 22 vectors and 5 lanes at each n) equal under device, host and auto")
+
+    blob, _ = prover_blob(settings)
+    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
+    calls = {"commit": lambda: bytes(Kzg.blob_to_kzg_commitment(blob, settings, backend)), "proof": lambda: [bytes(x) for x in Kzg.compute_kzg_proof(blob, z_out, settings, backend)]}
+    for name, fn in calls.items():
+        got = {}
+        for mode in ("device", "host"):
+            with placed(KZG_TORCH_PROVER=mode):
+                got[mode] = fn()
+        with placed(KZG_TORCH_PROVER="auto"):
+            backend.last_placement = {}
+            got["auto"] = fn()
+            decision = dict(backend.last_placement)
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t) * 1e3)
+        if not got["device"] == got["host"] == got["auto"]:
+            raise AssertionError(f"auto: {name}: the placements disagree: {got}")
+        if decision.get("op") != "prover":
+            raise AssertionError(f"auto: {name}: no decision recorded ({decision})")
+        dev_runs, host_runs = prover["runs_ms"][name], host["runs_ms"][name]
+        side = faster_side(dev_runs, host_runs)
+        if side is not None and decision["choice"] != side:
+            raise AssertionError(f"auto: {name} picked {decision['choice']}, but this run measured the {side} faster in every run: device {dev_runs}, host {host_runs}")
+        out["prover"][name] = {"decision": decision, "faster": side, "auto_ms": statistics.median(times), "auto_runs_ms": times, "device_runs_ms": dev_runs, "host_runs_ms": host_runs}
+        log(f"auto: {name}: {json.dumps(decision)}; measured device {dev_runs} ms, host {host_runs} ms (faster beyond the spread: {side}); under auto {statistics.median(times):.2f} ms (median of 3); the same bytes under all three")
+    return out
+
+
+def run_vector(kind: str, inp: dict, settings, backend, bytes_per_blob: int):
+    """One vector of ``kind`` through the public API: its output as the
+    vectors write it (hex strings, a bool), None for a KzgError."""
+    from kzg_rust_tpu_torch import Blob, Bytes32, Bytes48, Kzg, KzgError
+
+    def hexed(x) -> str:
+        return "0x" + bytes(x).hex()
+
+    blob = lambda: Blob.from_hex(inp["blob"], bytes_per_blob=bytes_per_blob)  # noqa: E731
+    calls = {
+        "blob_to_kzg_commitment": lambda: hexed(Kzg.blob_to_kzg_commitment(blob(), settings, backend)),
+        "compute_kzg_proof": lambda: [hexed(x) for x in Kzg.compute_kzg_proof(blob(), Bytes32.from_hex(inp["z"]), settings, backend)],
+        "compute_blob_kzg_proof": lambda: hexed(Kzg.compute_blob_kzg_proof(blob(), Bytes48.from_hex(inp["commitment"]), settings, backend)),
+        "verify_kzg_proof": lambda: Kzg.verify_kzg_proof(
+            Bytes48.from_hex(inp["commitment"]), Bytes32.from_hex(inp["z"]), Bytes32.from_hex(inp["y"]), Bytes48.from_hex(inp["proof"]), settings, backend
+        ),
+        "verify_blob_kzg_proof": lambda: Kzg.verify_blob_kzg_proof(blob(), Bytes48.from_hex(inp["commitment"]), Bytes48.from_hex(inp["proof"]), settings, backend),
+        "verify_blob_kzg_proof_batch": lambda: Kzg.verify_blob_kzg_proof_batch(
+            [Blob.from_hex(b, bytes_per_blob=bytes_per_blob) for b in inp["blobs"]],
+            [Bytes48.from_hex(c) for c in inp["commitments"]],
+            [Bytes48.from_hex(p) for p in inp["proofs"]],
+            settings,
+            backend,
+        ),
+    }
+    try:
+        return calls[kind]()
+    except KzgError:
+        return None
+
+
+def vectors_by_placement(backend, settings) -> dict:
+    """The 92 mainnet ``verify_kzg_proof`` vectors on ``settings``, and every
+    ``tests/vectors_minimal`` vector on the minimal setup (the minimal
+    preset's 4-element shapes on the card), through ``backend`` under
+    ``device``, ``host`` and ``auto`` (both variables): every outcome the
+    vector's, the same under all three."""
+    from kzg_rust_tpu_torch import MINIMAL, Kzg
+
+    minimal = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup_minimal.txt"), MINIMAL)
+    sets = {
+        "mainnet verify_kzg_proof": (settings, sorted(glob.glob(os.path.join(ROOT, "tests", "vectors", "verify_kzg_proof", "*", "*", "data.yaml"))), 92),
+        "minimal": (minimal, sorted(glob.glob(os.path.join(ROOT, "tests", "vectors_minimal", "*", "*", "*", "data.yaml"))), 28),
+    }
+    report = {}
+    for label, (s, files, count) in sets.items():
+        if len(files) != count:
+            raise AssertionError(f"expected {count} {label} vectors, found {len(files)}")
+        for mode in ("device", "host", "auto"):
+            with placed(KZG_TORCH_EVAL=mode, KZG_TORCH_PROVER=mode):
+                t = time.perf_counter()
+                for f in files:
+                    inp, expected = read_vector(f)
+                    kind = os.path.relpath(f, ROOT).split(os.sep)[-4]
+                    got = run_vector(kind, inp, s, backend, s.preset.bytes_per_blob)
+                    if got != expected:
+                        raise AssertionError(f"{label} under {mode}: {f}: got {got}, expected {expected}")
+                report[f"{label}/{mode}_s"] = time.perf_counter() - t
+        report[label] = count
+        seconds = ", ".join(f"{m} {report[f'{label}/{m}_s']:.2f} s" for m in ("device", "host", "auto"))
+        log(f"vectors: all {count} {label} vectors pass under device, host and auto ({seconds})")
+    return report
+
+
+def stage_inputs(device, lanes):
+    """Stage inputs of the valid batch of ``lanes``: its [2n, 48] compressed
+    points, seeded RLC digits and the generator's digits on ``device``, and
+    its blob bytes [n, 4096, 32] and seeded evaluation points there."""
+    import numpy as np
+    import torch
+
+    from kzg_rust_tpu_torch.golden.field import R
+    from kzg_rust_tpu_torch.ops import limbs as L
+    from kzg_rust_tpu_torch.ops import msm as M
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+
+    blobs, cs, ps = lanes["valid"][0]
+    n = len(blobs)
+    rows = [bytes(x) for pair in zip(cs, ps) for x in pair]
+    prng = random.Random(SEED + n)
+    rp, rz = [prng.randrange(R) for _ in range(n)], [prng.randrange(R) for _ in range(n)]
+    up = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    return {
+        "comp": up(np.frombuffer(b"".join(rows), dtype=np.uint8).reshape(2 * n, 48)),
+        "digits": up(V.stage2_digits(n, rp, rz)),
+        "sy": up(M.recode_signed_digits([prng.randrange(R)], 1)),
+        "blobs": up(np.frombuffer(b"".join(bytes(b) for b in blobs), dtype=np.uint8).reshape(n, -1, 32)),
+        "xs": up(L.ints_to_words(L.FR.nwords, [prng.randrange(R) for _ in range(n)])),
+    }
+
+
+def cuda_synced_ms(fn, reps: int = 3) -> tuple:
+    """``fn()``'s result and its host-clock milliseconds, synchronised
+    (median of ``reps``, the first call untimed)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return out, statistics.median(times)
+
+
+def sharded_phase(backend, settings, report, prover) -> dict:
+    """The sharded paths on a mesh of two shards on the one card, [cuda:0,
+    cuda:0], put in place by replacing a second backend's mesh method: the
+    batch at n = 64 and 512 (every lane's outcome), its three stages at
+    n = 64 held against the unsharded ones (flags, affine points, ys), a
+    commit and a proof on the point mesh, the MSM, and ``barycentric_eval``
+    on the domain mesh at mainnet width, each equal to the unsharded path's
+    and timed (host clock, synchronised, median of 3).  Two shards on one
+    card share its SMs: no gain is possible, and none is claimed."""
+    import torch
+
+    from kzg_rust_tpu_torch import Bytes32, Kzg, protocol
+    from kzg_rust_tpu_torch.backends.torch_backend import TorchBackend
+    from kzg_rust_tpu_torch.golden.field import R
+    from kzg_rust_tpu_torch.ops import curve as C
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+    from kzg_rust_tpu_torch.parallel import sharded as S
+
+    dev = backend.device
+    mesh = [dev, dev]
+    sharded = TorchBackend(device=dev)
+    sharded._auto_mesh = lambda n, kind: mesh if n % 2 == 0 else None
+    out = {"mesh": [str(d) for d in mesh], "batch_ms": {}, "stages_ms": {}, "prover_ms": {}}
+    lanes = sampled_lanes(SHARDED_SIZES)
+    for n, by_lane in lanes.items():
+        for lane, (args, _) in by_lane.items():
+            got = outcome(lambda: Kzg.verify_blob_kzg_proof_batch(*args, settings, sharded))
+            want = outcome(lambda: Kzg.verify_blob_kzg_proof_batch(*args, settings, backend))
+            if got != want:
+                raise AssertionError(f"sharded: n={n} lane {lane}: {got!r} on the mesh, {want!r} unsharded")
+        runs = timed_batches(sharded, settings, by_lane["valid"][0], host=True)
+        out["batch_ms"][n] = {"sharded": runs["e2e_ms"], "sharded_runs": runs["e2e_runs_ms"], "unsharded": report["e2e_ms"][n]}
+        log(f"sharded: n={n}: the five lanes' outcomes equal the unsharded path's; a valid batch {runs['e2e_ms']:.2f} ms on the mesh, {report['e2e_ms'][n]:.2f} unsharded (host clock, median of 3)")
+
+    inp = stage_inputs(dev, lanes[SHARDED_SIZES[0]])
+    gen = backend._gen_table()
+    ctx = backend._fr_ctx(settings)
+    (b1, b2, flags), one_ms = cuda_synced_ms(lambda: V.batch_points(inp["comp"]))
+    (sb1, sb2, sflags), two_ms = cuda_synced_ms(lambda: S.sharded_batch_points(inp["comp"], mesh))
+    if flags.tolist() != sflags.tolist() or flags.tolist() != [1, 1]:
+        raise AssertionError(f"sharded stage 1: flags {sflags.tolist()} on the mesh, {flags.tolist()} unsharded")
+    out["stages_ms"]["stage1"] = {"sharded": two_ms, "unsharded": one_ms}
+    o, one_ms = cuda_synced_ms(lambda: V.batch_stage2(b1, b2, inp["digits"], gen, inp["sy"]))
+    so, two_ms = cuda_synced_ms(lambda: S.sharded_batch_stage2(sb1, sb2, inp["digits"], gen, inp["sy"], mesh))
+    if C.proj_to_points(o.cpu()) != C.proj_to_points(so.cpu()):
+        raise AssertionError("sharded stage 2: the affine points differ from the unsharded ones")
+    out["stages_ms"]["stage2"] = {"sharded": two_ms, "unsharded": one_ms}
+    (ys, ok), one_ms = cuda_synced_ms(lambda: V.bary_batch_from_bytes(ctx, inp["blobs"], inp["xs"]))
+    (sys_, sok), two_ms = cuda_synced_ms(lambda: S.sharded_bary_blobs([ctx, ctx], inp["blobs"], inp["xs"], mesh))
+    if not torch.equal(ys, sys_) or not bool(ok) or not bool(sok):
+        raise AssertionError("sharded barycentric: the ys or the flag differ from the unsharded ones")
+    out["stages_ms"]["bary"] = {"sharded": two_ms, "unsharded": one_ms}
+    log(f"sharded: n={SHARDED_SIZES[0]} stages on the mesh equal the unsharded ones (flags, affine points, ys word for word); ms (synchronised, median of 3): {json.dumps(out['stages_ms'])}")
+
+    blob, commitment = prover_blob(settings)
+    t = time.perf_counter()
+    ctx2 = sharded._msm_ctx(settings)
+    torch.cuda.synchronize()
+    out["table_build_ms"] = (time.perf_counter() - t) * 1e3
+    if not isinstance(ctx2, S.ShardedMsmContext) or len(ctx2.shards) != 2:
+        raise AssertionError(f"sharded: the point mesh's context is {type(ctx2).__name__}")
+    z_out = Bytes32((0x5EED).to_bytes(32, "big"))
+    evals = protocol.blob_to_polynomial(settings, blob)
+    prng = random.Random(SEED)
+    scalars = [prng.randrange(R) for _ in range(settings.preset.field_elements_per_blob)]
+    x = prng.randrange(R)
+    checks = {
+        "commit": lambda be: bytes(Kzg.blob_to_kzg_commitment(blob, settings, be)),
+        "proof": lambda be: [bytes(v) for v in Kzg.compute_kzg_proof(blob, z_out, settings, be)],
+        "msm": lambda be: be.msm_g1_lagrange(settings, scalars),
+        "barycentric_eval": lambda be: be.barycentric_eval(settings, evals, x),
+    }
+    for name, fn in checks.items():
+        got, two_ms = cuda_synced_ms(lambda: fn(sharded))
+        want, one_ms = cuda_synced_ms(lambda: fn(backend))
+        if got != want:
+            raise AssertionError(f"sharded {name}: {got!r} on the mesh, {want!r} unsharded")
+        out["prover_ms"][name] = {"sharded": two_ms, "unsharded": one_ms}
+    if out["prover_ms"] and checks["commit"](sharded) != bytes(commitment):
+        raise AssertionError("sharded commit: not the vector's commitment")
+    log(f"sharded: the point-mesh commit, proof and MSM and the domain-mesh evaluation equal the unsharded path's; the split table built in {out['table_build_ms']:.1f} ms; ms (synchronised, median of 3): {json.dumps(out['prover_ms'])}")
+    return out
+
+
+def distributed_phase(backend, settings) -> dict:
+    """``parallel/distributed.py`` as a world of one rank over NCCL, with
+    local devices [cuda:0, cuda:0]: the 2-axis stages at n = 64 and the
+    2-axis MSM at mainnet width, equal to the unsharded path's (flags,
+    affine points)."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from kzg_rust_tpu_torch.golden.field import R
+    from kzg_rust_tpu_torch.ops import curve as C
+    from kzg_rust_tpu_torch.ops import verify_kernels as V
+    from kzg_rust_tpu_torch.parallel import distributed as D
+
+    dev = backend.device
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = {}
+    t = time.perf_counter()
+    D.initialize_distributed(f"tcp://localhost:{port}", world_size=1, rank=0, backend="nccl", timeout=datetime.timedelta(seconds=120))
+    out["init_ms"] = (time.perf_counter() - t) * 1e3
+    try:
+        mesh = D.host_chip_mesh([dev, dev])
+        n = SHARDED_SIZES[0]
+        inp = stage_inputs(dev, sampled_lanes((n,))[n])
+        gen = backend._gen_table()
+        b1, b2, flags = V.batch_points(inp["comp"])
+        (db1, db2, dflags), out["stage1_ms"] = cuda_synced_ms(lambda: D.batch_points_2axis(inp["comp"], mesh))
+        if dflags.tolist() != flags.tolist():
+            raise AssertionError(f"distributed stage 1: flags {dflags.tolist()}, unsharded {flags.tolist()}")
+        o = V.batch_stage2(b1, b2, inp["digits"], gen, inp["sy"])
+        do, out["stage2_ms"] = cuda_synced_ms(lambda: D.batch_stage2_2axis(db1, db2, inp["digits"], gen, inp["sy"], mesh))
+        if C.proj_to_points(do.cpu()) != C.proj_to_points(o.cpu()):
+            raise AssertionError("distributed stage 2: the affine points differ from the unsharded ones")
+        t = time.perf_counter()
+        ctx = D.ShardedMsmContext2Axis.build(settings, mesh)
+        torch.cuda.synchronize()
+        out["table_build_ms"] = (time.perf_counter() - t) * 1e3
+        prng = random.Random(SEED + 1)
+        scalars = [prng.randrange(R) for _ in range(settings.preset.field_elements_per_blob)]
+        got, out["msm_ms"] = cuda_synced_ms(lambda: D.msm_fixed_base_2axis(ctx, scalars))
+        if got != backend.msm_g1_lagrange(settings, scalars):
+            raise AssertionError("distributed MSM: the point differs from the unsharded MSM's")
+    finally:
+        dist.destroy_process_group()
+    log(f"distributed: a world of one rank over NCCL on [{dev}, {dev}]: the 2-axis stages (n = {n}) and MSM ({len(scalars)} points) equal the unsharded path's; ms: {json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -2681,6 +3120,12 @@ def main() -> int:
     report = main_path(backend, settings)
     prover = prover_path(backend, settings)
     host = host_placement(backend, settings)
+    # Phase 3e: the single-call and minimal vectors under every placement;
+    # 3f: two shards on the card; 3g: a world of one; 3d: auto placement.
+    vectors = vectors_by_placement(backend, settings)
+    sharded = sharded_phase(backend, settings, report, prover)
+    world = distributed_phase(backend, settings)
+    auto = auto_placement(backend, settings, report, prover, host)
 
     # Phase 4: report.  A kernel's launches on the path: one valid n = 64
     # batch, one commit and one proof, each counted from 0.  In a larger
@@ -2769,6 +3214,8 @@ def main() -> int:
             }
         )
     )
+    log(json.dumps({"auto": auto, "vectors_by_placement": vectors, "card": card}))
+    log(json.dumps({"sharded": sharded, "distributed": world, "card": card}))
     # The kernels line lists the ports of the repo's TPU kernels, K1-K4, and
     # the prover's MSM kernels, M1 and M2; the launchers that share their
     # device functions are checked and logged above.

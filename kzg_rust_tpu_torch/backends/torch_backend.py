@@ -31,7 +31,7 @@ GoldenBackend) goes through :mod:`kzg_rust_tpu_torch.hostcrypto`, i.e. the
 native C++ host engine where it loads.
 
 Placement is the caller's choice, per call, through two environment
-variables, each ``device`` (the default) or ``host``:
+variables, each ``device`` (the default), ``host`` or ``auto``:
 
 * ``KZG_TORCH_EVAL`` for verification: ``host`` runs
   ``verify_blob_kzg_proof_batch``, ``verify_kzg_proof`` and
@@ -41,9 +41,25 @@ variables, each ``device`` (the default) or ``host``:
   ``blob_to_kzg_commitment``, ``compute_kzg_proof`` and
   ``compute_blob_kzg_proof`` each as one call of its ``ProverCtx``.
 
-``host`` without the engine raises RuntimeError.  The JAX package's
-measured ``auto`` placement (and its ``host-piecewise`` mode) is not ported
-yet (ROADMAP Queue 1, measured placement); either value raises ValueError.
+``host`` without the engine raises RuntimeError.  ``auto`` is the JAX
+package's measured placement (:mod:`.placement`), decided per call: a batch
+and each prover call go to the card exactly when the link's measured cost
+plus the card's fitted time beats the engine's measured time for that call
+(:meth:`TorchBackend._auto_prefers_device`); ``verify_kzg_proof`` and
+``verify_blob_kzg_proof`` take the engine.  On a CPU backend ``auto`` is the
+host; without the engine it is the device path.  The default stays
+``device``, where the JAX package's is ``auto``: the port's entry points
+run on the card unless the caller asks otherwise.  ``host-piecewise`` is
+not ported (nothing in the port calls the engine's piecewise path) and
+raises ValueError.
+
+With more than one visible card, a batch, the commit, the MSM and the
+single-blob barycentric evaluation split over a mesh of them
+(:mod:`..parallel.sharded`; ``KZG_TORCH_SHARD=0`` keeps one card): the
+largest power of two of cards that divides the batch, the setup's points or
+the domain.  Every device entry point runs under ``torch.cuda.device`` of
+the backend's card, so ``TorchBackend(device="cuda:1")`` needs no current
+card of its caller.
 
 On a CUDA device the constructor builds and loads the engine and raises
 where it does not load (unless ``KZG_TORCH_NATIVE=0``).
@@ -55,6 +71,7 @@ plain PyTorch versions (the CPU tests).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import threading
@@ -65,6 +82,8 @@ import torch
 
 from .. import hostcrypto, native
 from ..errors import BadArgs
+from ..ops._build import on_device
+from . import placement as P
 from ..messages import (
     MSG_BLOB_LENGTH,
     MSG_EXPECT_48,
@@ -252,17 +271,25 @@ class _BaryChunks:
 
 
 def placement(var: str) -> str:
-    """``device`` or ``host``, as the environment variable ``var``
+    """``device``, ``host`` or ``auto``, as the environment variable ``var``
     (``KZG_TORCH_EVAL`` or ``KZG_TORCH_PROVER``) asks; ``device`` when unset."""
     mode = os.environ.get(var, "device")
-    if mode in ("auto", "host-piecewise"):
-        raise ValueError(
-            f"{var}={mode}: the JAX package's measured placement is not ported yet "
-            "(ROADMAP Queue 1, measured placement); use device or host"
-        )
-    if mode not in ("device", "host"):
-        raise ValueError(f"{var}={mode!r}: expected device or host")
+    if mode == "host-piecewise":
+        raise ValueError(f"{var}=host-piecewise is not ported: nothing in the port calls the engine's piecewise path; use device, host or auto")
+    if mode not in ("device", "host", "auto"):
+        raise ValueError(f"{var}={mode!r}: expected device, host or auto")
     return mode
+
+
+def _on_own_device(method):
+    """Run a device entry point under ``torch.cuda.device(self.device)``."""
+
+    @functools.wraps(method)
+    def bound(self, *args, **kwargs):
+        with on_device(self.device):
+            return method(self, *args, **kwargs)
+
+    return bound
 
 
 class TorchBackend(GoldenBackend):
@@ -277,13 +304,20 @@ class TorchBackend(GoldenBackend):
                     "the kernels' plain versions"
                 )
             device = torch.device("cuda", torch.cuda.current_device())
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
         # On the card the host work between launches runs in the native
         # engine: a failed build fails here, not as a quiet switch to the
         # golden model, which only KZG_TORCH_NATIVE=0 asks for.
         if self.device.type == "cuda" and native.wanted():
             native.require()
         self._ctx = {}
+        # auto placement: the decisions logged so far, (op, n, outcome), and
+        # the last decision with its terms (milliseconds).
+        self._placement_logged = set()
+        self.last_placement: dict = {}
         # With time_stages on a CUDA device, each call records a pair of
         # CUDA events around every stage (stage_ms() reads them) and the
         # host's milliseconds between its steps (host_ms).
@@ -324,15 +358,24 @@ class TorchBackend(GoldenBackend):
 
     # -- batched blob verification (device pipeline) --------------------------
 
+    @_on_own_device
     def verify_blob_batch_pipeline(
         self, settings, blobs, commitments_bytes, proofs_bytes
     ) -> bool:
         """Batched re-expression of the reference's per-blob loop + RLC
         combination (reference: kzg.rs:637-693, :579-627).  Same validation
         and bit-exact outcomes; execution is three device stages, or one
-        call of the host engine with ``KZG_TORCH_EVAL=host``."""
-        host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
+        call of the host engine with ``KZG_TORCH_EVAL=host`` (or ``auto``
+        where the engine is measured faster for this n)."""
         preset = settings.preset
+        n = len(blobs)
+        host = self._host_ctx(
+            "KZG_TORCH_EVAL",
+            self._verify_native_ctx,
+            settings,
+            # the blobs and two 48-byte points each cross the link
+            lambda: self._auto_prefers_device(settings, n, n * (preset.bytes_per_blob + 96), "verify_batch"),
+        )
         for b in blobs:
             if len(b) != preset.bytes_per_blob:
                 raise BadArgs(MSG_BLOB_LENGTH)
@@ -343,7 +386,6 @@ class TorchBackend(GoldenBackend):
                 raise BadArgs(MSG_EXPECT_48)
         if host is None:
             return self._verify_batch_device(settings, blobs, commitments_bytes, proofs_bytes)
-        n = len(blobs)
         comms = b"".join(bytes(b) for b in commitments_bytes)
         proofs = b"".join(bytes(b) for b in proofs_bytes)
         if all(isinstance(b, bytes) for b in blobs):
@@ -353,7 +395,8 @@ class TorchBackend(GoldenBackend):
 
     def verify_kzg_proof_pipeline(self, settings, commitment_bytes, z_bytes, y_bytes, proof_bytes):
         """``verify_kzg_proof`` (reference: kzg.rs:429-443) as one call of
-        the host engine with ``KZG_TORCH_EVAL=host``; NotImplemented (the
+        the host engine with ``KZG_TORCH_EVAL=host`` or ``auto`` (where the
+        engine loads, as the JAX backend places it); NotImplemented (the
         protocol's piecewise path) on the device, and for a wrong length,
         whose exact error the piecewise path raises."""
         host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
@@ -363,7 +406,8 @@ class TorchBackend(GoldenBackend):
 
     def verify_blob_pipeline(self, settings, blob, commitment_bytes, proof_bytes):
         """``verify_blob_kzg_proof`` (reference: kzg.rs:547-569) as one call
-        of the host engine with ``KZG_TORCH_EVAL=host``; NotImplemented on
+        of the host engine with ``KZG_TORCH_EVAL=host`` or ``auto`` (where
+        the engine loads); NotImplemented on
         the device (the piecewise path, its barycentric evaluation on the
         card)."""
         host = self._host_ctx("KZG_TORCH_EVAL", self._verify_native_ctx, settings)
@@ -377,16 +421,111 @@ class TorchBackend(GoldenBackend):
 
     # -- host placement -------------------------------------------------------
 
-    def _host_ctx(self, var: str, ctx, settings):
-        """The engine's context ``ctx(settings)`` when ``var`` asks for host
-        placement, None for the device; RuntimeError for host without the
-        engine."""
-        if placement(var) == "device":
+    def _host_ctx(self, var: str, ctx, settings, prefers_device=lambda: False):
+        """The engine's context ``ctx(settings)`` when ``var`` places this
+        call on the host, None for the device.  ``host`` without the engine
+        raises RuntimeError; ``auto`` is the device without the engine or
+        where ``prefers_device()`` (the measured rule) says so, else the
+        host."""
+        mode = placement(var)
+        if mode == "device":
             return None
         host = ctx(settings)
         if host is None:
-            raise RuntimeError(f"{var}=host but the native host engine is not available")
+            if mode == "host":
+                raise RuntimeError(f"{var}=host but the native host engine is not available")
+            return None
+        if mode == "auto" and prefers_device():
+            return None
         return host
+
+    def _auto_prefers_device(self, settings, n_blobs: int, upload_bytes: int, op: str) -> bool:
+        """``auto``: the card for this call exactly when its estimate beats
+        the engine's measured time for it (:mod:`.placement`), per call, so
+        that the choice follows n.  The estimate is ``AUTO_RTT_CROSSINGS``
+        round trips plus the upload plus the card's fitted time, or, where
+        the port overlaps the upload with the card's work (a batch in the
+        unsharded chunked regime, decided on the padded npad as
+        :meth:`_verify_batch_device` decides it), the round trips plus the
+        larger of the two; a sharded batch uploads in one transfer and
+        keeps the sum.  A CPU backend takes the host.  The decision's terms
+        are kept in ``last_placement`` and logged at INFO once per (op, n,
+        outcome)."""
+        if self.device.type != "cuda":
+            return False
+        bpb = settings.preset.bytes_per_blob
+        if op == "prover":
+            host_s = P.host_prove_profile(self._prover_native_ctx(settings), bpb)
+        else:
+            host_s = n_blobs * P.host_verify_profile(self._verify_native_ctx(settings), bpb, n_blobs)
+        rtt, bw = P.link_profile(self.device)
+        upload_s = upload_bytes / bw
+        dev_s = P.device_est(n_blobs, op)
+        npad = _pow2_pad(n_blobs, lo=4)
+        sharded = op != "prover" and self._batch_mesh(npad) is not None
+        overlapped = op != "prover" and not sharded and npad >= 2 * BARY_CHUNK_BLOBS
+        est_s = P.AUTO_RTT_CROSSINGS * rtt + (max(upload_s, dev_s) if overlapped else upload_s + dev_s)
+        choose_device = est_s < host_s
+        self.last_placement = {
+            "op": op,
+            "n": n_blobs,
+            "rtt_ms": rtt * 1e3,
+            "h2d_mb_per_s": bw / 1e6,
+            "upload_ms": upload_s * 1e3,
+            "device_est_ms": dev_s * 1e3,
+            "overlapped": overlapped,
+            "sharded": sharded,
+            "combined_ms": est_s * 1e3,
+            "host_budget_ms": host_s * 1e3,
+            "choice": "device" if choose_device else "host",
+        }
+        key = (op, n_blobs, choose_device)
+        if key not in self._placement_logged:
+            self._placement_logged.add(key)
+            P.logger.info(
+                "placement auto [%s]: n=%d rtt=%.3fms h2d=%.0fMB/s upload=%.2fms device_est=%.2fms combined=%.2fms%s host_budget=%.2fms -> %s",
+                op,
+                n_blobs,
+                rtt * 1e3,
+                bw / 1e6,
+                upload_s * 1e3,
+                dev_s * 1e3,
+                est_s * 1e3,
+                " (upload overlaps compute)" if overlapped else (" (sharded)" if sharded else ""),
+                host_s * 1e3,
+                self.last_placement["choice"],
+            )
+        return choose_device
+
+    def _auto_mesh(self, n: int, kind: str):
+        """A mesh (:mod:`..parallel.sharded`) over ``kind`` (blobs, points or
+        domain) of the largest power of two of visible CUDA devices that
+        divides ``n``, from this backend's card on; None with one card, on
+        the CPU, or with ``KZG_TORCH_SHARD=0``."""
+        if self.device.type != "cuda" or os.environ.get("KZG_TORCH_SHARD", "auto") == "0":
+            return None
+        ndev = torch.cuda.device_count()
+        d = 1
+        while d * 2 <= ndev and n % (d * 2) == 0:
+            d *= 2
+        if d < 2:
+            return None
+        key = (kind + "_mesh", d)
+        if key not in self._ctx:
+            from ..parallel import sharded as S
+
+            factory = {"blobs": S.blobs_mesh, "points": S.default_mesh, "domain": S.domain_mesh}[kind]
+            self._ctx[key] = factory(d, first=self.device)
+        return self._ctx[key]
+
+    def _batch_mesh(self, npad: int):
+        return self._auto_mesh(npad, "blobs")
+
+    def _points_mesh(self, n: int):
+        return self._auto_mesh(n, "points")
+
+    def _domain_mesh(self, n: int):
+        return self._auto_mesh(n, "domain")
 
     def _verify_native_ctx(self, settings):
         """The engine's fused verification context for this setup, or None."""
@@ -433,6 +572,7 @@ class TorchBackend(GoldenBackend):
                 xs_eval[i] = 0  # any out-of-domain dummy; result discarded
         return xs_eval, overrides
 
+    @_on_own_device
     def _verify_batch_device(self, settings, blobs, commitments_bytes, proofs_bytes):
         """Stage 1 (decompress, window-base chain, subgroup checks) is
         launched first; the host computes the Fiat-Shamir challenges
@@ -442,7 +582,9 @@ class TorchBackend(GoldenBackend):
         upload overlapping the chunk before it, else at full width after
         one upload of the joined blobs.  Then one packed fetch of flags and
         ys, the RLC scalars on the host, stage 2, and one pairing on the
-        host."""
+        host.  On a blob mesh (:meth:`_batch_mesh`) the three stages split
+        the blobs over its cards (:mod:`..parallel.sharded`), the blobs
+        going up in one transfer a card, with no chunks."""
         from ..golden import curve as gcurve
         from ..golden.field import R
         from ..ops import curve as C
@@ -458,7 +600,8 @@ class TorchBackend(GoldenBackend):
         preset = settings.preset
         npad = _pow2_pad(n, lo=4)
         pad = npad - n
-        chunked = npad >= 2 * BARY_CHUNK_BLOBS
+        mesh = self._batch_mesh(npad)
+        chunked = mesh is None and npad >= 2 * BARY_CHUNK_BLOBS
 
         # Compressed points, blob-major interleave (row 2b = commitment b,
         # row 2b+1 = proof b) per the stage-2 lane layout; padded rows are
@@ -476,14 +619,21 @@ class TorchBackend(GoldenBackend):
         # until stage 1 ends.  Stage 1 is then enqueued before any host
         # hashing, and the doubling chain runs while the host hashes below.
         # In the chunked regime the blobs go up chunk by chunk instead.
-        if not chunked:
+        if mesh is not None:
+            from ..parallel import sharded as S
+
+            blob_dev = S.shard_rows(torch.from_numpy(self._blob_bytes_np(settings, blobs)), mesh, npad)
+        elif not chunked:
             blob_np = self._blob_bytes_np(settings, blobs)
             blob_dev = torch.zeros((npad,) + blob_np.shape[1:], dtype=torch.uint8, device=dev)
             blob_dev[:n] = torch.from_numpy(blob_np).to(dev)
         comp_dev = self._upload(comp)
         self._lap("pack_upload")
         self._mark("stage1.start")
-        bases, bases2, pflags = self._stage1(comp_dev, npad)
+        if mesh is not None:
+            bases, bases2, pflags = S.sharded_batch_points(comp_dev, mesh)
+        else:
+            bases, bases2, pflags = self._stage1(comp_dev, npad)
         self._mark("stage1.end")
         self._lap("stage1_enqueue")
 
@@ -498,7 +648,11 @@ class TorchBackend(GoldenBackend):
             xs = self._upload(L.ints_to_words(FR.nwords, xs_eval + [0] * pad))
             self._lap("hash")
             self._mark("bary.start")
-            ys_dev, blob_ok = V.bary_batch_from_bytes(ctx, blob_dev, xs)
+            if mesh is not None:
+                ctxs = [self._fr_ctx(settings, d) for d in mesh]
+                ys_dev, blob_ok = S.sharded_bary_blobs(ctxs, blob_dev, xs, mesh)
+            else:
+                ys_dev, blob_ok = V.bary_batch_from_bytes(ctx, blob_dev, xs)
             self._mark("bary.end")
             self._lap("bary_enqueue")
 
@@ -529,7 +683,10 @@ class TorchBackend(GoldenBackend):
         self._lap("rlc")
 
         self._mark("stage2.start")
-        out = V.batch_stage2(bases, bases2, self._upload(digits), self._gen_table(), self._upload(sy_digits))
+        if mesh is not None:
+            out = S.sharded_batch_stage2(bases, bases2, self._upload(digits), self._gen_table(), self._upload(sy_digits), mesh)
+        else:
+            out = V.batch_stage2(bases, bases2, self._upload(digits), self._gen_table(), self._upload(sy_digits))
         self._mark("stage2.end")
         proof_lincomb, rhs_g1 = C.proj_to_points(out.cpu())
         self._lap("stage2")
@@ -617,6 +774,7 @@ class TorchBackend(GoldenBackend):
             cache["roots_idx"] = {w: i for i, w in enumerate(settings.roots_of_unity)}
         return cache["roots_idx"]
 
+    @_on_own_device
     def _gen_table(self):
         if "gen_table" not in self._ctx:
             from ..ops import verify_kernels as V
@@ -624,51 +782,87 @@ class TorchBackend(GoldenBackend):
             self._ctx["gen_table"] = V.build_generator_table(self.device)
         return self._ctx["gen_table"]
 
-    def _fr_ctx(self, settings):
+    def _fr_ctx(self, settings, device=None):
+        """The Fr context on ``device`` (this backend's card by default)."""
+        device = self.device if device is None else torch.device(device)
         cache = settings._device_cache
-        key = ("fr_ctx", str(self.device))
+        key = ("fr_ctx", str(device))
         if key not in cache:
             from ..ops import protocol_kernels as pk
 
-            cache[key] = pk.FrContext.build(settings, self.device)
+            with on_device(device):
+                cache[key] = pk.FrContext.build(settings, device)
+        return cache[key]
+
+    def _fr_domain_ctx(self, settings, mesh):
+        """The Fr context split over a domain mesh, per settings and mesh."""
+        cache = settings._device_cache
+        key = ("fr_ctx_domain",) + tuple(str(d) for d in mesh)
+        if key not in cache:
+            from ..parallel import sharded as S
+
+            cache[key] = S.ShardedFrContext.build(settings, mesh)
         return cache[key]
 
     # -- prover (device pipelines) --------------------------------------------
 
+    @_on_own_device
     def _msm_ctx(self, settings):
-        """Per-settings GLV table on this device, built at the first use;
-        None below 8 points (the reference goes naive there,
+        """Per-settings GLV table, built at the first use: split over a
+        point mesh (:meth:`_points_mesh`) where there is one, else on this
+        device; None below 8 points (the reference goes naive there,
         utils.rs:369-371)."""
+        n = settings.preset.field_elements_per_blob
+        mesh = self._points_mesh(n) if n >= 8 else None
         cache = settings._device_cache
-        key = ("msm", str(self.device))
+        key = ("msm",) + tuple(str(d) for d in (mesh or [self.device]))
         if key not in cache:
             from ..ops import msm as M
+            from ..parallel import sharded as S
 
-            n = settings.preset.field_elements_per_blob
-            cache[key] = None if n < 8 else M.MsmContext.build(settings, self.device)
+            if n < 8:
+                cache[key] = None
+            elif mesh is not None:
+                cache[key] = S.ShardedMsmContext.build(settings, mesh)
+            else:
+                cache[key] = M.MsmContext.build(settings, self.device)
         return cache[key]
 
-    def _blob_dev(self, settings, blob):
-        """One blob's bytes -> [n, 32] uint8 on the device; BadArgs on a
-        wrong length."""
+    def _blob_dev(self, settings, blob, device=None):
+        """One blob's bytes -> [n, 32] uint8 on ``device`` (this backend's by
+        default); BadArgs on a wrong length."""
         if len(blob) != settings.preset.bytes_per_blob:
             raise BadArgs(MSG_BLOB_LENGTH)
         arr = np.frombuffer(bytearray(bytes(blob)), dtype=np.uint8).reshape(-1, 32)
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(self.device if device is None else device)
 
     def _fetch(self, *parts):
         """One device-to-host copy of the int32 words of ``parts``."""
         packed = torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
         return packed.cpu().numpy()
 
-    def _prover_host(self, settings, blob):
-        """The engine's prover context with ``KZG_TORCH_PROVER=host`` (the
-        blob's length checked), None for the device."""
-        host = self._host_ctx("KZG_TORCH_PROVER", self._prover_native_ctx, settings)
-        if host is not None and len(blob) != settings.preset.bytes_per_blob:
-            raise BadArgs(MSG_BLOB_LENGTH)
-        return host
+    def _prover_mode(self, settings) -> str:
+        """``KZG_TORCH_PROVER`` resolved for one prover call, ``device`` or
+        ``host``: ``auto`` by the measured rule at one blob, whose bytes
+        cross the link (the JAX backend's ``_prover_mode``)."""
+        host = self._host_ctx(
+            "KZG_TORCH_PROVER",
+            self._prover_native_ctx,
+            settings,
+            lambda: self._auto_prefers_device(settings, 1, settings.preset.bytes_per_blob, "prover"),
+        )
+        return "device" if host is None else "host"
 
+    def _prover_host(self, settings, blob):
+        """The engine's prover context where the call is placed on the host
+        (the blob's length checked), None for the device."""
+        if self._prover_mode(settings) == "device":
+            return None
+        if len(blob) != settings.preset.bytes_per_blob:
+            raise BadArgs(MSG_BLOB_LENGTH)
+        return self._prover_native_ctx(settings)
+
+    @_on_own_device
     def blob_to_commitment_pipeline(self, settings, blob):
         """``blob_to_kzg_commitment`` (reference: kzg.rs:396-406) as one
         device sequence (ingest, canonicality, M1, M2) and one
@@ -677,6 +871,8 @@ class TorchBackend(GoldenBackend):
         from ..ops import curve as C
         from ..ops import prover_kernels as PR
 
+        from ..parallel import sharded as S
+
         host = self._prover_host(settings, blob)
         if host is not None:
             return host.commit(bytes(blob))
@@ -684,6 +880,13 @@ class TorchBackend(GoldenBackend):
         if ctx is None:
             return NotImplemented
         self._start_timing()
+        if isinstance(ctx, S.ShardedMsmContext):
+            # The blob's element axis is the point axis: it splits with the table.
+            point, ok = S.sharded_commit(ctx, self._blob_dev(settings, blob, "cpu"))
+            arr = self._fetch(point, ok)
+            if not arr[-1]:
+                raise BadArgs(MSG_INVALID_BYTES32)
+            return C.proj_to_points(arr[:-1].reshape(1, 3, -1))[0]
         blob_dev = self._blob_dev(settings, blob)
         self._lap("upload")
         point, ok = PR.commit(ctx, blob_dev, self._mark)
@@ -694,6 +897,7 @@ class TorchBackend(GoldenBackend):
             raise BadArgs(MSG_INVALID_BYTES32)
         return C.proj_to_points(arr[:-1].reshape(1, 3, -1))[0]
 
+    @_on_own_device
     def compute_kzg_proof_pipeline(self, settings, blob, z: int):
         """``compute_kzg_proof_impl`` (reference: kzg.rs:461-528) as one
         device sequence (ingest, y, quotient, M1, M2) and one fetch
@@ -705,11 +909,15 @@ class TorchBackend(GoldenBackend):
         from ..ops import prover_kernels as PR
         from ..ops.limbs import FR
 
+        from ..parallel import sharded as S
+
         host = self._prover_host(settings, blob)
         if host is not None:
             return host.prove(bytes(blob), z.to_bytes(32, "big"))
         ctx = self._msm_ctx(settings)
-        if ctx is None:
+        if ctx is None or isinstance(ctx, S.ShardedMsmContext):
+            # On a point mesh the protocol's piecewise path runs: the
+            # domain-split evaluation, the quotient here, the split MSM.
             return NotImplemented
         self._start_timing()
         blob_dev = self._blob_dev(settings, blob)
@@ -725,6 +933,7 @@ class TorchBackend(GoldenBackend):
         proof_pt = C.proj_to_points(arr[:pw].reshape(1, 3, -1))[0]
         return proof_pt, L.words_to_ints(arr[pw : pw + FR.nwords].reshape(1, -1))[0]
 
+    @_on_own_device
     def compute_blob_proof_pipeline(self, settings, blob, commitment_bytes):
         """``compute_blob_kzg_proof`` (reference: kzg.rs:533-544) as one
         engine call with ``KZG_TORCH_PROVER=host``: commitment validation,
@@ -738,12 +947,16 @@ class TorchBackend(GoldenBackend):
             raise BadArgs(MSG_EXPECT_48)
         return host.blob_proof(bytes(blob), bytes(commitment_bytes))
 
+    @_on_own_device
     def msm_g1_lagrange(self, settings, scalars):
         from ..ops import msm as M
+        from ..parallel import sharded as S
 
         ctx = self._msm_ctx(settings)
         if ctx is None:  # tiny presets take the host path
             return super().msm_g1_lagrange(settings, scalars)
+        if isinstance(ctx, S.ShardedMsmContext):
+            return S.msm_fixed_base_sharded(ctx, scalars)
         return M.msm_fixed_base(ctx, scalars)
 
     # -- polynomial math (device) ---------------------------------------------
@@ -753,13 +966,25 @@ class TorchBackend(GoldenBackend):
 
         return L.to_device(L.FR, values, self.device)
 
+    @_on_own_device
     def barycentric_eval(self, settings, evals, x: int) -> int:
         from ..ops import limbs as L
         from ..ops import protocol_kernels as pk
 
+        mesh = self._domain_mesh(settings.preset.field_elements_per_blob)
+        if mesh is not None:
+            # The domain split over the mesh's cards: each sums its terms,
+            # the Fr partials are added on this card.
+            from ..parallel import sharded as S
+
+            ctx = self._fr_domain_ctx(settings, mesh)
+            evals_host = torch.from_numpy(L.ints_to_words(L.FR.nwords, evals))[:, None]
+            xs_host = torch.from_numpy(L.ints_to_words(L.FR.nwords, [x]))
+            return L.words_to_ints(S.sharded_bary(ctx, evals_host, xs_host).cpu())[0]
         y = pk.barycentric_eval(self._fr_ctx(settings), self._fr_words(evals), self._fr_words([x])[0])
         return L.words_to_ints(y[None].cpu())[0]
 
+    @_on_own_device
     def quotient_out_of_domain(self, settings, evals, z: int, y: int):
         from ..ops import limbs as L
         from ..ops import protocol_kernels as pk
@@ -768,6 +993,7 @@ class TorchBackend(GoldenBackend):
         q = pk.quotient_out_of_domain(self._fr_ctx(settings), self._fr_words(evals), zy[0], zy[1])
         return L.words_to_ints(q.cpu())
 
+    @_on_own_device
     def quotient_in_domain(self, settings, evals, z: int, y: int, m: int):
         from ..ops import limbs as L
         from ..ops import protocol_kernels as pk

@@ -179,6 +179,16 @@ def launch(name: str, device, *args) -> None:
     (CAPTURED if getattr(_CAPTURE, "on", False) else LAUNCHES)[name] += 1
 
 
+def on_device(device):
+    """``torch.cuda.device(device)`` for a CUDA device, so that launches on
+    its tensors find it current (:func:`launch` checks); nothing for the
+    CPU."""
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def capturing():
     """Mark this thread's launches as recorded into a CUDA graph (counted in

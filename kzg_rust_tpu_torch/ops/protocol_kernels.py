@@ -34,9 +34,13 @@ class FrContext:
 
     @classmethod
     def build(cls, settings, device) -> "FrContext":
-        n = settings.preset.field_elements_per_blob
+        return cls.from_roots(settings.preset.field_elements_per_blob, settings.roots_of_unity, device)
+
+    @classmethod
+    def from_roots(cls, n: int, roots, device) -> "FrContext":
+        """The context of ``roots`` (the whole domain of size n, or a shard's
+        slice of it), with the whole domain's n and mont(1/n)."""
         rr = FR.mont_r
-        roots = settings.roots_of_unity
         return cls(
             n,
             L.to_device(FR, [w * rr % R for w in roots], device),

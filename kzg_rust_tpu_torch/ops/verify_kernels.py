@@ -429,12 +429,25 @@ def bary_batch_inv(ctx, evals: torch.Tensor, xs: torch.Tensor, tickets=None):
     (e w / (x - w)) R), and the domain sum, a plain modular sum of
     Montgomery terms here, drops to canonical form with one ``from_mont``
     on [B] (the JAX package's ``sum_mont_redc`` did both in one REDC)."""
-    mul = lambda u, v: L.mont_mul(FR, u, v)  # noqa: E731
     x_m = L.to_mont(FR, xs)  # [B, 8]
-    d = L.sub_mod(FR, x_m[None], ctx.roots_m[:, None])  # [n, B, 8]
+    s, inv = bary_partial(ctx, evals, x_m, tickets)
+    return bary_finish(ctx, s, x_m), inv
+
+
+def bary_partial(ctx, evals: torch.Tensor, x_m: torch.Tensor, tickets=None):
+    """The barycentric sum over ``ctx``'s roots (the domain, or a shard's
+    slice of it): evals [k, B, 8] canonical, x_m [B, 8] Montgomery -> (sum_i
+    e_i w_i / (x - w_i) [B, 8] canonical, inv [k, B, 8])."""
+    mul = lambda u, v: L.mont_mul(FR, u, v)  # noqa: E731
+    d = L.sub_mod(FR, x_m[None], ctx.roots_m[:, None])  # [k, B, 8]
     inv = L.batch_mont_inv(FR, d, axis=0)
     terms = mul(mul(inv, ctx.roots_m2[:, None]), evals)  # Montgomery form
-    s = L.from_mont(FR, L.sum_mod(FR, terms, tickets))  # canonical sum
-    s = mul(s, ctx.inv_n_m)  # canonical x mont -> canonical
+    return L.from_mont(FR, L.sum_mod(FR, terms, tickets)), inv  # canonical sum
+
+
+def bary_finish(ctx, s: torch.Tensor, x_m: torch.Tensor) -> torch.Tensor:
+    """(x^n - 1) / n times the barycentric sum ``s`` (canonical) -> y
+    canonical."""
+    s = L.mont_mul(FR, s, ctx.inv_n_m)  # canonical x mont -> canonical
     xn = L.mont_pow_const(FR, x_m, ctx.n)
-    return mul(s, L.sub_mod(FR, xn, FR.const("one_mont", xs.device))), inv
+    return L.mont_mul(FR, s, L.sub_mod(FR, xn, FR.const("one_mont", x_m.device)))

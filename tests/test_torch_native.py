@@ -467,15 +467,29 @@ def test_host_placement_t16_prover(t16, host_placement):
 @pytest.mark.parametrize("mode", ["auto", "host-piecewise", "tpu"])
 @pytest.mark.parametrize("var", PLACEMENT_VARS)
 def test_placement_refuses_unported_modes(var, mode, monkeypatch, minimal_batch):
-    settings, _, blobs, comms, proofs = minimal_batch
+    """``auto`` resolves on each variable: on a CPU backend it is the
+    engine, whose answer the JAX backend's host placement gives too.
+    ``host-piecewise`` (not ported) and unknown values raise."""
+    settings, jsettings, blobs, comms, proofs = minimal_batch
     monkeypatch.setenv(var, mode)
     backend = TorchBackend(device="cpu")
     call = {
         "KZG_TORCH_EVAL": lambda: backend.verify_blob_batch_pipeline(settings, blobs, comms, proofs),
         "KZG_TORCH_PROVER": lambda: backend.compute_blob_proof_pipeline(settings, blobs[0], comms[0]),
     }[var]
-    with pytest.raises(ValueError, match="measured placement" if mode != "tpu" else "device or host"):
-        call()
+    if mode != "auto":
+        with pytest.raises(ValueError, match="not ported" if mode == "host-piecewise" else "device, host or auto"):
+            call()
+        return
+    for name in ("_verify_batch_device", "_msm_ctx"):
+        monkeypatch.setattr(backend, name, lambda *a: pytest.fail("auto on a CPU backend reached the device path"))
+    monkeypatch.setenv(var.replace("TORCH", "TPU"), "host")
+    jax = {
+        "KZG_TORCH_EVAL": lambda: JaxBackend().verify_blob_batch_pipeline(jsettings, blobs, comms, proofs),
+        "KZG_TORCH_PROVER": lambda: JaxBackend().compute_blob_proof_pipeline(jsettings, blobs[0], comms[0]),
+    }[var]
+    assert call() == jax()
+    assert call() == (True if var == "KZG_TORCH_EVAL" else gc.g1_uncompress(proofs[0]))
 
 
 def test_device_placement_is_the_default(minimal_batch):

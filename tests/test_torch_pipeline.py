@@ -162,6 +162,8 @@ def test_import_rule():
     every import statement is checked, and a fresh interpreter imports every
     module of the port and finds neither in sys.modules."""
     sources = sorted(PKG.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    for module in ("backends/placement.py", "parallel/__init__.py", "parallel/sharded.py", "parallel/distributed.py"):
+        assert PKG / module in sources, module
     for src in sources:
         for node in ast.walk(ast.parse(src.read_text())):
             names = []
