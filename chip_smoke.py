@@ -93,8 +93,10 @@ Phases, any failure of which exits non-zero without the final line:
    ``backends/placement.py``'s constants are fitted to;
 3e. the 92 mainnet ``verify_kzg_proof`` vectors and every
    ``tests/vectors_minimal`` vector (the minimal setup: the kernels at its
-   4-element shapes) under device, host and auto placement, every outcome
-   the vector's;
+   4-element shapes) under device, host, auto and host-piecewise placement,
+   every outcome the vector's; under device the pairing inputs the mainnet
+   vectors hand the engine are recorded (as are phase 3's valid and
+   swapped batches' at n = 64);
 3f. the sharded paths on a mesh of two shards on the one card: every lane
    of the batch at n = 64 and 512, the three stages alone at n = 64, a
    commit and a proof on the point mesh, the split MSM and the
@@ -103,6 +105,17 @@ Phases, any failure of which exits non-zero without the final line:
 3g. ``parallel/distributed.py`` as a world of one rank over NCCL on two
    local shards of the card: the 2-axis stages at n = 64 and MSM at
    mainnet width, equal to the unsharded path's;
+3h. the device pairing (``csrc/pairing_kernels.cu``, run before 3f): P1
+   ``kzg_fp12_op`` word for word against its plain version for each op
+   code at [4096] (the Granger-Scott squaring on cyclotomic elements), P2
+   ``kzg_miller_loop`` at [2, 1] and [2, 64] and P3 ``kzg_final_exp``
+   (its value, with the real |x| at K = 1 and 64 and with the bits (1, 0))
+   against theirs, P2 and P3 timed at K = 1, 64 and 1024, ptxas's
+   registers and stack for the source; every recorded pairing and five
+   infinity lanes through ``ops/pairing.pairings_verify_device``, one at a
+   time and in one batched call, each answer the engine's and the
+   expected one; one check at K = 1 on the host clock beside the
+   engine's;
 4. check that every kernel of the path launched in the n = 64 batch, one
    commit or one proof, that at every n a valid batch made the launches
    ``batch_launches`` counts, stage 1 being exactly kernel A, the
@@ -164,8 +177,14 @@ PEAK_MEM_CAP = 1_200_000_000
 # kzg_fp_pow_const run only in the MSM table's one-off build (its infinity
 # mask and batched inversion), kzg_fp_add in no path.  The blob ingest
 # (kzg_fr_ingest) checks the blobs' canonicality, so the generic Fr compare
-# runs in no path either.
-OFF_PATH = {"kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp", "kzg_fp_add", "kzg_fp_pow_const", "kzg_fr_cmp"}
+# runs in no path either.  The device pairing (P1-P3) is an op-level
+# entry point of its own, ``ops/pairing.pairings_verify_device``: the
+# backends' pairing is the host engine's, as in the JAX package, so no
+# counted run launches it (phase 3h drives it).
+OFF_PATH = {
+    "kzg_fr_add", "kzg_proj_double", "kzg_proj_add_mixed", "kzg_fp_cmp", "kzg_fp_add", "kzg_fp_pow_const", "kzg_fr_cmp",
+    "kzg_fp12_op", "kzg_miller_loop", "kzg_final_exp",
+}
 # Phase 2 shapes, each one the main path gives the kernel at n = 4096 or 64
 # (or gave it before stage 1 ran in kernels A and B, kept so that each
 # kernel's time stays comparable across PRs): K1 at stage 1's former width
@@ -2310,6 +2329,8 @@ def golden_pairing_lane(backend, settings, lanes) -> dict:
     finally:
         del backend.pairings_verify
     report = {"engine_ms": [], "golden_ms": [], "results": []}
+    for (args, ok, _), lane in zip(seen, ("valid", "swapped_proof")):
+        RECORDED_PAIRINGS.append((f"n={BATCH_SIZES[0]} {lane}", args, ok, lanes[lane][1]))
     for args, ok, ms in seen:
         t = time.perf_counter()
         want = gp.pairings_verify(*args)
@@ -2652,6 +2673,34 @@ def placed(**env):
                 os.environ[k] = v
 
 
+PLACEMENTS = ("device", "host", "auto", "host-piecewise")
+# (label, (a1, a2, b1, b2), the engine's answer, the expected answer) of
+# every pairing that phases 3 and 3e hand the engine on the card path.
+RECORDED_PAIRINGS: list = []
+
+
+@contextlib.contextmanager
+def recording_pairings(backend, on: bool = True):
+    """Within the block (where ``on``), ``backend.pairings_verify`` also
+    appends (args, the engine's answer) to the list it yields."""
+    seen = []
+    if not on:
+        yield seen
+        return
+    engine = backend.pairings_verify
+
+    def recording(*args):
+        ok = engine(*args)
+        seen.append((args, ok))
+        return ok
+
+    backend.pairings_verify = recording
+    try:
+        yield seen
+    finally:
+        del backend.pairings_verify
+
+
 def outcome(fn):
     """``fn()``'s value, or the class name of the KzgError it raised."""
     from kzg_rust_tpu_torch import KzgError
@@ -2823,8 +2872,10 @@ def vectors_by_placement(backend, settings) -> dict:
     """The 92 mainnet ``verify_kzg_proof`` vectors on ``settings``, and every
     ``tests/vectors_minimal`` vector on the minimal setup (the minimal
     preset's 4-element shapes on the card), through ``backend`` under
-    ``device``, ``host`` and ``auto`` (both variables): every outcome the
-    vector's, the same under all three."""
+    ``device``, ``host``, ``auto`` and ``host-piecewise`` (both variables):
+    every outcome the vector's, the same under all four.  Under ``device``
+    the pairing inputs that the mainnet vectors hand the engine are kept in
+    RECORDED_PAIRINGS with the engine's answer and the vector's output."""
     from kzg_rust_tpu_torch import MINIMAL, Kzg
 
     minimal = Kzg.load_trusted_setup_file(os.path.join(ROOT, "data", "trusted_setup_minimal.txt"), MINIMAL)
@@ -2836,8 +2887,9 @@ def vectors_by_placement(backend, settings) -> dict:
     for label, (s, files, count) in sets.items():
         if len(files) != count:
             raise AssertionError(f"expected {count} {label} vectors, found {len(files)}")
-        for mode in ("device", "host", "auto"):
-            with placed(KZG_TORCH_EVAL=mode, KZG_TORCH_PROVER=mode):
+        for mode in PLACEMENTS:
+            record = mode == "device" and label.startswith("mainnet")
+            with placed(KZG_TORCH_EVAL=mode, KZG_TORCH_PROVER=mode), recording_pairings(backend, record) as seen:
                 t = time.perf_counter()
                 for f in files:
                     inp, expected = read_vector(f)
@@ -2845,11 +2897,232 @@ def vectors_by_placement(backend, settings) -> dict:
                     got = run_vector(kind, inp, s, backend, s.preset.bytes_per_blob)
                     if got != expected:
                         raise AssertionError(f"{label} under {mode}: {f}: got {got}, expected {expected}")
+                    RECORDED_PAIRINGS.extend((os.path.basename(os.path.dirname(f)), args, ok, expected) for args, ok in seen)
+                    seen.clear()
                 report[f"{label}/{mode}_s"] = time.perf_counter() - t
         report[label] = count
-        seconds = ", ".join(f"{m} {report[f'{label}/{m}_s']:.2f} s" for m in ("device", "host", "auto"))
-        log(f"vectors: all {count} {label} vectors pass under device, host and auto ({seconds})")
+        seconds = ", ".join(f"{m} {report[f'{label}/{m}_s']:.2f} s" for m in PLACEMENTS)
+        log(f"vectors: all {count} {label} vectors pass under {', '.join(PLACEMENTS)} ({seconds})")
     return report
+
+
+# Fp products (CIOS) of the tower's Fp12 functions as csrc/tower.cuh runs
+# them: the product 54 (3 Fp6 products of 6 Fp2 products of 3), the
+# squaring 36, the Granger-Scott squaring 18 (9 Fp2 squarings of 2), the
+# Frobenius 15 (5 Fp2 products), the sparse line product 42 (14 Fp2
+# products), the inversion 107 besides its Fermat chain; and those of a
+# Miller step's tangent line, doubling, chord line and mixed add.
+FP12_PRODUCTS = {"mul": 54, "sqr": 36, "cyclo_sqr": 18, "frobenius": 15, "mul_by_line": 42, "inv": 107}
+LINE_PRODUCTS = {"tangent": 23, "double": 25, "chord": 16, "madd": 39}
+PAIRING_KS = (1, 64, 1024)  # checks a P2 / P3 launch is timed at
+PAIRING_P1_N = 4096  # Fp12 elements of each P1 launch
+PAIRING_PLAIN_K = 64  # checks the plain P2 and P3 run at (K = 1 is its first lane)
+# The pairings phases 3 and 3e hand the engine: the valid and swapped n = 64
+# batches and the 72 mainnet proof vectors that decode; fewer means the
+# recording lost some.
+MIN_RECORDED_PAIRINGS = 74
+
+
+def inv_chain(p: int) -> tuple[int, int]:
+    """(products, squarings) of the Fermat chain p - 2 in csrc/tower.cuh
+    fe2_inv (field.cuh pow_const: the table, four squarings a further 4-bit
+    digit and a product a nonzero one), the norm's two squarings included."""
+    digits = [int(c, 16) for c in f"{p - 2:x}"]
+    return max(digits) - 1 + sum(1 for d in digits[1:] if d), 4 * (len(digits) - 1) + 2
+
+
+def miller_products(bits) -> int:
+    """Fp products of one active Miller lane over ``bits`` (below the MSB)."""
+    step = FP12_PRODUCTS["sqr"] + LINE_PRODUCTS["tangent"] + FP12_PRODUCTS["mul_by_line"] + LINE_PRODUCTS["double"]
+    add = LINE_PRODUCTS["chord"] + FP12_PRODUCTS["mul_by_line"] + LINE_PRODUCTS["madd"]
+    return len(bits) * step + sum(bits) * add
+
+
+def final_exp_products(bits) -> int:
+    """Fp products of one final exponentiation (the Fermat chain's apart):
+    the easy part (3 products, an inversion, 2 Frobenius), five
+    exponentiations by x, the chain's 3 products and a Frobenius, the
+    tail's 4 products, 2 Frobenius and a Granger-Scott squaring."""
+    p = FP12_PRODUCTS
+    exp = len(bits) * p["cyclo_sqr"] + sum(bits) * p["mul"]
+    return 3 * p["mul"] + p["inv"] + 2 * p["frobenius"] + 5 * exp + 3 * p["mul"] + p["frobenius"] + 4 * p["mul"] + 2 * p["frobenius"] + p["cyclo_sqr"]
+
+
+def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dict]:
+    """Phase 3h, the device pairing: P1 (``kzg_fp12_op``) word for word
+    against its plain version for each op code at [4096] (the Granger-Scott
+    squaring on cyclotomic elements), P2 (``kzg_miller_loop``) at [2, 1]
+    and [2, 64] and P3 (``kzg_final_exp``) with the real |x| at K = 1 and
+    64 and with the tiny bits (1, 0), each value against its plain version;
+    P2 and P3 timed at K = 1, 64 and 1024 (CUDA events, median of 3); every
+    pairing that phases 3 and 3e handed the engine through
+    ``pairings_verify_device``, one at a time and as one batched call, plus
+    lanes with an infinity argument, each answer the engine's and the
+    expected one; one check at K = 1 on the host clock beside the engine's.
+    Returns the rows (the P rows of the kernels line) and the report."""
+    import numpy as np
+    import torch
+
+    from kzg_rust_tpu_torch import hostcrypto
+    from kzg_rust_tpu_torch.golden import curve as gc
+    from kzg_rust_tpu_torch.golden import pairing as gp
+    from kzg_rust_tpu_torch.golden.field import P as FP_P
+    from kzg_rust_tpu_torch.ops import limbs as L
+    from kzg_rust_tpu_torch.ops import pairing as PR
+    from kzg_rust_tpu_torch.ops import tower as T
+
+    t_phase = time.perf_counter()
+    imad_s = sms * IMAD_PER_CLOCK_PER_SM * sm_clock_hz
+    mul_ops, sqr_ops = 2 * (2 * 144 + 12), 2 * (78 + 144 + 12)  # IMADs of an Fp product and squaring
+    chain_p, chain_s = inv_chain(FP_P)
+    src = "kzg_rust_tpu_torch/csrc/pairing_kernels.cu"
+    jp = "kzg_rust_tpu/ops/pairing.py"
+    rows, report = [], {"ptxas": {}, "ms": {}, "checks": {}}
+
+    def row(name, got, want, timed, plain_s, lanes_ops, nbytes, replaces, keep, shape, reps=3, op=None):
+        g64, w64 = got.to(torch.int64) & 0xFFFFFFFF, want.to(torch.int64) & 0xFFFFFFFF
+        err = int((g64 - w64).abs().max().item()) if got.numel() else 0
+        label = f"{name} {op}" if op else name
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{label} at {shape}: the kernel disagrees with its plain version (max |diff| {err})")
+        ms, call_ms = graph_ms(timed, reps), cuda_ms(timed, 3)
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, lanes_ops / imad_s * 1e3
+        r = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None, "shape": shape, "call_ms": call_ms, "l2": "as replayed",
+        }
+        if op:
+            r["op"] = op
+        log(f"kernel {label}: equal to plain at {shape}; {ms:.4f} ms on the card (CUDA graph replay; {call_ms:.4f} ms per call), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        r["kept"] = keep
+        rows.append(r)
+        return r
+
+    def plain_timed(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    for label, (src_, regs, spills) in ptxas_report().items():
+        if src_ == "pairing_kernels.cu":
+            report["ptxas"][label] = f"{regs}; {spills}"
+            log(f"pairing: ptxas {label}: {regs}; {spills}")
+    report["build_s"] = _build_seconds("pairing_kernels.cu")
+
+    # P1 at [4096]: seeded elements; cyclotomic ones for the Granger-Scott
+    # squaring, made on the card by P1's own product, inversion and
+    # Frobenius (each held to its plain version here first).
+    rng = np.random.default_rng(SEED)
+    n = PAIRING_P1_N
+
+    def rand_elts(shape):
+        vals = random_field(rng, FP_P, int(np.prod(shape)))
+        return torch.from_numpy(L.ints_to_words(12, vals).reshape(tuple(shape) + (12,))).to(device)
+
+    a, b, line = rand_elts((n, 2, 3, 2)), rand_elts((n, 2, 3, 2)), rand_elts((n, 3, 2))
+    a[0] = 0  # inv(0) = 0
+    for op in ("mul", "sqr", "frobenius", "inv", "mul_by_line", "cyclo_sqr"):
+        x = a
+        if op == "cyclo_sqr":
+            m = T.fp12_op("mul", T.DEVICE.f12_conj(a[1:]), T.fp12_op("inv", a[1:]))
+            x = T.fp12_op("mul", T.fp12_op("frobenius", T.fp12_op("frobenius", m)), m)
+            if not bool(T.fp12_is_one(T.fp12_op("mul", x, T.DEVICE.f12_conj(x))).all()):
+                raise AssertionError("P1: the easy part's image does not have norm one")
+        y = {"mul": b, "mul_by_line": line}.get(op)
+        got = T.fp12_op(op, x, y)
+        want, plain_s = plain_timed(T.fp12_op_plain, op, x, y)
+        k = x.shape[0]
+        ops = k * (FP12_PRODUCTS[op] * mul_ops + ((chain_p * mul_ops + chain_s * sqr_ops) if op == "inv" else 0))
+        words = 144 + {"mul": 144, "mul_by_line": 72}.get(op, 0) + 144
+        row("P1 kzg_fp12_op", got, want, lambda: T.fp12_op(op, x, y), plain_s, ops, k * words * 4, "none (one Fp12 function of ops/tower.py a launch)", op == "mul", [k, 144], reps=10, op=op)
+
+    # P2 and P3 on the pairings the card path handed the engine.
+    if len(RECORDED_PAIRINGS) < MIN_RECORDED_PAIRINGS:
+        raise AssertionError(f"only {len(RECORDED_PAIRINGS)} recorded pairing inputs, expected {MIN_RECORDED_PAIRINGS}")
+    checks = [args for _, args, _, _ in RECORDED_PAIRINGS]
+    xp, yp, qx, qy, active = PR.pairing_inputs([checks[i % len(checks)] for i in range(max(PAIRING_KS))], device)
+    q = PR._q_packed(qx, qy)
+    # The plain versions run once, at K = PAIRING_PLAIN_K (a few seconds a
+    # call on the card, launch-bound); the kernels' K = 1 values are held
+    # against its first lane, and each K is timed.
+    args_of = {k: (xp[:, :k].contiguous(), yp[:, :k].contiguous(), q[:, :k].contiguous(), active[:, :k].contiguous()) for k in PAIRING_KS}
+    f_of = {k: PR.miller_loop(*args_of[k]) for k in PAIRING_KS}
+    kp = PAIRING_PLAIN_K
+    p2_ops = {k: int(active[:, :k].sum()) * miller_products(PR._X_BITS) * mul_ops for k in PAIRING_KS}
+    p3_ops = {k: k * (final_exp_products(PR._ABS_X_BITS) * mul_ops + chain_p * mul_ops + chain_s * sqr_ops) for k in PAIRING_KS}
+    want2, plain_s = plain_timed(PR.miller_loop_plain, *args_of[kp])
+    row("P2 kzg_miller_loop", f_of[kp], want2, lambda: PR.miller_loop(*args_of[kp]), plain_s, p2_ops[kp], 2 * kp * (72 * 4 + 1 + 144 * 4), f"{jp}:202 miller_loop_kernel (XLA)", True, [2, kp])
+    want3, plain_s = plain_timed(PR.final_exp_plain, f_of[kp], PR._ABS_X_BITS, True)
+    row(
+        "P3 kzg_final_exp", PR.final_exp(f_of[kp], value=True), want3, lambda: PR.final_exp(f_of[kp]), plain_s, p3_ops[kp], kp * 3 * 144 * 4,
+        f"{jp}:264 _easy_part_kernel, :236 _exp_by_x_with_bits, :275 _mul_conj_kernel, :280 _mul_frob_kernel, :294 _hard_tail_kernel (XLA)", True, [kp],
+    )
+    if not torch.equal(PR.final_exp(f_of[kp]).cpu(), T.fp12_is_one(want3).cpu()):
+        raise AssertionError(f"P3 at K = {kp}: the flags are not the value's is-one test")
+    if not (torch.equal(f_of[1], want2[:, :1]) and torch.equal(PR.final_exp(f_of[1], value=True), want3[:1])):
+        raise AssertionError("P2 or P3 at K = 1 disagrees with the first lane of its plain version")
+    want = PR.final_exp_plain(f_of[1], (1, 0), True)
+    if not torch.equal(PR.final_exp(f_of[1], (1, 0), value=True), want):
+        raise AssertionError("P3 with the bits (1, 0) disagrees with its plain version")
+    log(f"kernel P2, P3: at K = 1 equal to the first lane of the plain versions at K = {kp}; P3 with the bits (1, 0) equal to plain at K = 1")
+    for k in PAIRING_KS:
+        report["ms"][f"P2 K={k}"] = graph_ms(lambda: PR.miller_loop(*args_of[k]), 3)
+        report["ms"][f"P3 K={k}"] = graph_ms(lambda: PR.final_exp(f_of[k]), 3)
+        report["ms"][f"P2 K={k} bound"] = p2_ops[k] / imad_s * 1e3
+        report["ms"][f"P3 K={k} bound"] = p3_ops[k] / imad_s * 1e3
+
+    # Every recorded pairing through the device entry point: one at a time,
+    # then all in one batched call, with infinity lanes added.
+    g1, g2 = gc.G1_GENERATOR, gc.G2_GENERATOR
+    inf = [
+        ("both pairs at infinity", (None, g2, None, g2)),
+        ("P0 at infinity", (None, g2) + checks[0][2:]),
+        ("Q0 at infinity", (checks[0][0], None) + checks[0][2:]),
+        ("P1 and Q1 at infinity", (g1, g2, None, None)),
+        ("e(G1, G2) == e(G1, G2) with Q1 at infinity", (g1, g2, g1, None)),
+    ]
+    labels = [lab for lab, _, _, _ in RECORDED_PAIRINGS] + [lab for lab, _ in inf]
+    all_checks = checks + [c for _, c in inf]
+    engine = [hostcrypto.pairings_verify(*c) for c in all_checks]
+    expected = [exp for _, _, _, exp in RECORDED_PAIRINGS] + [gp.pairings_verify(*c) for _, c in inf]
+    recorded_engine = [ok for _, _, ok, _ in RECORDED_PAIRINGS]
+    if engine[: len(checks)] != recorded_engine or engine != expected:
+        raise AssertionError("the engine's pairings disagree with the recorded or expected answers")
+    t = time.perf_counter()
+    one_by_one = [PR.pairings_verify_device(*c) for c in all_checks]
+    one_s = time.perf_counter() - t
+    t = time.perf_counter()
+    batched = PR.pairings_verify_device_batch(all_checks)
+    batch_s = time.perf_counter() - t
+    for lab, want_, one, bat in zip(labels, expected, one_by_one, batched):
+        if not (one is bat is want_):
+            raise AssertionError(f"device pairing {lab}: one at a time {one}, batched {bat}, engine and expected {want_}")
+    report["checks"] = {"count": len(all_checks), "true": sum(expected), "one_at_a_time_s": one_s, "batched_s": batch_s}
+    log(f"pairing: {len(all_checks)} checks ({len(checks)} recorded from phases 3 and 3e, {len(inf)} with infinity) through pairings_verify_device: every answer the engine's and the expected one, one at a time ({one_s:.2f} s) and in one batched call ({batch_s * 1e3:.1f} ms host clock)")
+
+    # One check at K = 1 on the host clock, beside the engine's pairing.
+    valid = checks[0]
+    dev_ms, eng_ms = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        PR.pairings_verify_device(*valid)
+        dev_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        hostcrypto.pairings_verify(*valid)
+        eng_ms.append((time.perf_counter() - t) * 1e3)
+    report["check_k1_host_ms"] = {"device": statistics.median(dev_ms), "engine": statistics.median(eng_ms)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"pairing: one check at K = 1, host clock, median of 3: the card {report['check_k1_host_ms']['device']:.2f} ms, the engine {report['check_k1_host_ms']['engine']:.2f} ms; P2 / P3 ms at K = {PAIRING_KS}: {json.dumps(report['ms'])}; phase {report['phase_s']:.1f} s")
+    return rows, report
+
+
+def _build_seconds(src: str) -> float:
+    from kzg_rust_tpu_torch.ops import _build
+
+    return _build.BUILD_INFO.get(src, {}).get("seconds", 0.0)
 
 
 def stage_inputs(device, lanes):
@@ -3123,6 +3396,10 @@ def main() -> int:
     # Phase 3e: the single-call and minimal vectors under every placement;
     # 3f: two shards on the card; 3g: a world of one; 3d: auto placement.
     vectors = vectors_by_placement(backend, settings)
+    # Phase 3h: the device pairing on the pairings of phases 3 and 3e.
+    p_rows, pairing = pairing_phase(device, clock_mhz * 1e6, sms)
+    rows += [r for r in p_rows if r.pop("kept")]
+    every += p_rows
     sharded = sharded_phase(backend, settings, report, prover)
     world = distributed_phase(backend, settings)
     auto = auto_placement(backend, settings, report, prover, host)
@@ -3215,11 +3492,14 @@ def main() -> int:
         )
     )
     log(json.dumps({"auto": auto, "vectors_by_placement": vectors, "card": card}))
+    log(json.dumps({"device_pairing": pairing, "card": card}))
     log(json.dumps({"sharded": sharded, "distributed": world, "card": card}))
-    # The kernels line lists the ports of the repo's TPU kernels, K1-K4, and
-    # the prover's MSM kernels, M1 and M2; the launchers that share their
-    # device functions are checked and logged above.
-    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith(("K", "M")) or r.get("kernels_line")]}))
+    # The kernels line lists the ports of the repo's TPU kernels, K1-K4, the
+    # prover's MSM kernels, M1 and M2, and the device pairing's, P1 (its
+    # product; the other op codes are logged above), P2 and P3 at K = 64;
+    # the launchers that share their device functions are checked and
+    # logged above.
+    log(json.dumps({"kernels": [r for r in rows if r["name"].startswith(("K", "M", "P")) or r.get("kernels_line")]}))
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -31,7 +31,8 @@ GoldenBackend) goes through :mod:`kzg_rust_tpu_torch.hostcrypto`, i.e. the
 native C++ host engine where it loads.
 
 Placement is the caller's choice, per call, through two environment
-variables, each ``device`` (the default), ``host`` or ``auto``:
+variables, each ``device`` (the default), ``host``, ``auto`` or
+``host-piecewise``:
 
 * ``KZG_TORCH_EVAL`` for verification: ``host`` runs
   ``verify_blob_kzg_proof_batch``, ``verify_kzg_proof`` and
@@ -49,9 +50,13 @@ plus the card's fitted time beats the engine's measured time for that call
 ``verify_blob_kzg_proof`` take the engine.  On a CPU backend ``auto`` is the
 host; without the engine it is the device path.  The default stays
 ``device``, where the JAX package's is ``auto``: the port's entry points
-run on the card unless the caller asks otherwise.  ``host-piecewise`` is
-not ported (nothing in the port calls the engine's piecewise path) and
-raises ValueError.
+run on the card unless the caller asks otherwise.  ``KZG_TORCH_EVAL=
+host-piecewise`` is the JAX backend's: ``verify_blob_kzg_proof_batch`` in
+the engine's separate calls (decompression, subgroup checks, the
+barycentric evaluations of ``BaryCtx``, the lincombs, the pairing) with
+the challenges and the RLC scalars in Python, and RuntimeError without
+the engine; the single-proof calls and ``KZG_TORCH_PROVER=host-piecewise``
+take the device path, as in the JAX backend.
 
 With more than one visible card, a batch, the commit, the MSM and the
 single-blob barycentric evaluation split over a mesh of them
@@ -270,14 +275,15 @@ class _BaryChunks:
         return self.graph.outputs
 
 
+PLACEMENTS = ("device", "host", "auto", "host-piecewise")
+
+
 def placement(var: str) -> str:
-    """``device``, ``host`` or ``auto``, as the environment variable ``var``
+    """One of :data:`PLACEMENTS`, as the environment variable ``var``
     (``KZG_TORCH_EVAL`` or ``KZG_TORCH_PROVER``) asks; ``device`` when unset."""
     mode = os.environ.get(var, "device")
-    if mode == "host-piecewise":
-        raise ValueError(f"{var}=host-piecewise is not ported: nothing in the port calls the engine's piecewise path; use device, host or auto")
-    if mode not in ("device", "host", "auto"):
-        raise ValueError(f"{var}={mode!r}: expected device, host or auto")
+    if mode not in PLACEMENTS:
+        raise ValueError(f"{var}={mode!r}: expected one of {', '.join(PLACEMENTS)}")
     return mode
 
 
@@ -369,6 +375,11 @@ class TorchBackend(GoldenBackend):
         where the engine is measured faster for this n)."""
         preset = settings.preset
         n = len(blobs)
+        bary = None
+        if placement("KZG_TORCH_EVAL") == "host-piecewise":
+            bary = self._bary_native_ctx(settings)
+            if bary is None:
+                raise RuntimeError("KZG_TORCH_EVAL=host-piecewise but the native host engine is not available")
         host = self._host_ctx(
             "KZG_TORCH_EVAL",
             self._verify_native_ctx,
@@ -384,6 +395,8 @@ class TorchBackend(GoldenBackend):
         for b in list(commitments_bytes) + list(proofs_bytes):
             if len(bytes(b)) != 48:
                 raise BadArgs(MSG_EXPECT_48)
+        if bary is not None:
+            return self._verify_batch_piecewise(settings, blobs, commitments_bytes, proofs_bytes, bary)
         if host is None:
             return self._verify_batch_device(settings, blobs, commitments_bytes, proofs_bytes)
         comms = b"".join(bytes(b) for b in commitments_bytes)
@@ -428,7 +441,7 @@ class TorchBackend(GoldenBackend):
         where ``prefers_device()`` (the measured rule) says so, else the
         host."""
         mode = placement(var)
-        if mode == "device":
+        if mode in ("device", "host-piecewise"):
             return None
         host = ctx(settings)
         if host is None:
@@ -554,6 +567,44 @@ class TorchBackend(GoldenBackend):
             )
         return cache["prover_native"]
 
+
+    def _bary_native_ctx(self, settings):
+        """The engine's barycentric context for this setup, or None."""
+        cache = settings._device_cache
+        if "bary_native" not in cache:
+            cache["bary_native"] = hostcrypto.bary_ctx(settings.roots_of_unity)
+        return cache["bary_native"]
+
+    def _verify_batch_piecewise(self, settings, blobs, commitments_bytes, proofs_bytes, bary):
+        """``KZG_TORCH_EVAL=host-piecewise`` (the JAX backend's piecewise
+        host path, ``jax_backend.py:432-485``): the points decoded in the
+        engine, the challenges, the in-domain overrides, the subgroup check,
+        ``bary.eval_batch``, the RLC scalars, the two lincombs and the
+        pairing, each a host call; the errors in the same order."""
+        from ..golden import curve as gcurve
+        from ..golden.field import R
+        from ..utils import bls_serde as serde
+
+        preset = settings.preset
+        n = len(blobs)
+        points = hostcrypto.g1_uncompress_batch([bytes(b) for b in commitments_bytes] + [bytes(b) for b in proofs_bytes])
+        commitments, proofs = points[:n], points[n:]
+        zs = _Challenges(preset, blobs, commitments_bytes).get(0, n)
+        xs_eval, overrides = self._in_domain_overrides(settings, blobs, zs)
+        if not hostcrypto.g1_subgroup_batch(points):
+            raise BadArgs(MSG_NOT_IN_SUBGROUP)
+        ys = bary.eval_batch(b"".join(bytes(b) for b in blobs), n, xs_eval)
+        for i, y in overrides.items():
+            ys[i] = y
+        r_powers = serde.compute_r_powers(preset, commitments_bytes, zs, ys, proofs_bytes)
+        r_times_z = [(r_powers[i] * zs[i]) % R for i in range(n)]
+        ry = sum(rp * y for rp, y in zip(r_powers, ys))
+        proof_lincomb = hostcrypto.g1_lincomb_naive(proofs, r_powers)
+        rhs_g1 = hostcrypto.g1_sub(
+            hostcrypto.g1_lincomb_naive(commitments + proofs, r_powers + r_times_z),
+            hostcrypto.g1_mul(gcurve.G1_GENERATOR, ry % R),
+        )
+        return self.pairings_verify(proof_lincomb, settings.g2_values[1], rhs_g1, gcurve.G2_GENERATOR)
 
     def _in_domain_overrides(self, settings, blobs, zs):
         """The in-domain short-circuit (reference: kzg.rs:360-362): replace

@@ -68,6 +68,9 @@ ENTRY_POINTS = {
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _P, _I64, _P]),
     "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _P]),
+    "kzg_fp12_op": ("pairing_kernels.cu", [_P, _P, _P, _I64, ctypes.c_int, _P]),
+    "kzg_miller_loop": ("pairing_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _P]),
+    "kzg_final_exp": ("pairing_kernels.cu", [_P, _P, _I64, _P, _I64, ctypes.c_int, _P]),
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,

@@ -51,6 +51,20 @@ def fr_from_jax(arr, mont: bool = False, device="cpu") -> torch.Tensor:
     return _to_words(FR, vals, arr.shape[:-1], device)
 
 
+def fp2_from_jax(x, device="cpu"):
+    """An Fp2 of the JAX tower, (c0, c1) of ``[..., 32]`` limbs -> (c0, c1)
+    of ``[..., 12]`` words (Montgomery values keep their integers)."""
+    return tuple(fp_from_jax(c, device) for c in x)
+
+
+def fp6_from_jax(x, device="cpu"):
+    return tuple(fp2_from_jax(c, device) for c in x)
+
+
+def fp12_from_jax(x, device="cpu"):
+    return tuple(fp6_from_jax(c, device) for c in x)
+
+
 def points_from_jax(arr, device="cpu") -> torch.Tensor:
     """Projective points ``[..., 3, 32]`` -> ``[..., 3, 12]``."""
     return fp_from_jax(arr, device)

@@ -464,12 +464,29 @@ def test_host_placement_t16_prover(t16, host_placement):
         assert got[0] == "BadArgs" and got == want
 
 
+def _batch_lanes(blobs, comms, proofs):
+    """The minimal batch and its bad lanes, as the API takes them."""
+    bad_blob = Blob(b"\xff" * 32 + bytes(blobs[0])[32:], bytes_per_blob=MINIMAL.bytes_per_blob)
+    return {
+        "valid": (blobs, comms, proofs),
+        "swapped_proof": (blobs, comms, [proofs[1], proofs[0], proofs[2]]),
+        "malformed_commitment": (blobs, [b"\x12" * 48] + comms[1:], proofs),
+        "non_subgroup": (blobs, [gc.g1_compress(_off_subgroup_point())] + comms[1:], proofs),
+        "noncanonical_blob": ([bad_blob] + blobs[1:], comms, proofs),
+    }
+
+
 @pytest.mark.parametrize("mode", ["auto", "host-piecewise", "tpu"])
 @pytest.mark.parametrize("var", PLACEMENT_VARS)
 def test_placement_refuses_unported_modes(var, mode, monkeypatch, minimal_batch):
     """``auto`` resolves on each variable: on a CPU backend it is the
     engine, whose answer the JAX backend's host placement gives too.
-    ``host-piecewise`` (not ported) and unknown values raise."""
+    ``host-piecewise`` is the JAX backend's: a batch in the engine's
+    separate calls, with the JAX backend's ``host-piecewise`` outcome (value,
+    or error class and message) on the valid batch and each bad lane, and
+    host placement's value or error class; on the prover it is the device
+    path, whose fused call declines as the JAX backend's does.  Unknown
+    values raise."""
     settings, jsettings, blobs, comms, proofs = minimal_batch
     monkeypatch.setenv(var, mode)
     backend = TorchBackend(device="cpu")
@@ -477,9 +494,31 @@ def test_placement_refuses_unported_modes(var, mode, monkeypatch, minimal_batch)
         "KZG_TORCH_EVAL": lambda: backend.verify_blob_batch_pipeline(settings, blobs, comms, proofs),
         "KZG_TORCH_PROVER": lambda: backend.compute_blob_proof_pipeline(settings, blobs[0], comms[0]),
     }[var]
-    if mode != "auto":
-        with pytest.raises(ValueError, match="not ported" if mode == "host-piecewise" else "device, host or auto"):
+    if mode == "tpu":
+        with pytest.raises(ValueError, match="expected one of device, host, auto, host-piecewise"):
             call()
+        return
+    if mode == "host-piecewise":
+        monkeypatch.setenv(var.replace("TORCH", "TPU"), mode)
+        jax = JaxBackend()
+        if var == "KZG_TORCH_PROVER":
+            assert call() is NotImplemented
+            assert jax.compute_blob_proof_pipeline(jsettings, blobs[0], comms[0]) is NotImplemented
+            assert backend._prover_mode(settings) == "device"
+            return
+        monkeypatch.setattr(backend, "_verify_batch_device", lambda *a: pytest.fail("host-piecewise reached the device path"))
+        for lane, (bs, cs, ps) in _batch_lanes(blobs, comms, proofs).items():
+            monkeypatch.setenv(var, mode)
+            got = outcome(lambda: backend.verify_blob_batch_pipeline(settings, bs, cs, ps))
+            assert got == outcome(lambda: jax.verify_blob_batch_pipeline(jsettings, bs, cs, ps)), lane
+            monkeypatch.setenv(var, "host")
+            host = outcome(lambda: backend.verify_blob_batch_pipeline(settings, bs, cs, ps))
+            assert (got[0] if isinstance(got, tuple) else got) == (host[0] if isinstance(host, tuple) else host), lane
+            assert got == {"valid": True, "swapped_proof": False}.get(lane, got) and (lane in ("valid", "swapped_proof") or got[0] == "BadArgs"), lane
+        monkeypatch.setattr(TB.hostcrypto, "bary_ctx", lambda roots: None)
+        monkeypatch.setenv(var, mode)
+        with pytest.raises(RuntimeError, match="host-piecewise but the native host engine is not available"):
+            TorchBackend(device="cpu").verify_blob_batch_pipeline(make_insecure_setup(MINIMAL), blobs, comms, proofs)
         return
     for name in ("_verify_batch_device", "_msm_ctx"):
         monkeypatch.setattr(backend, name, lambda *a: pytest.fail("auto on a CPU backend reached the device path"))

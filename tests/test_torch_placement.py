@@ -242,18 +242,30 @@ def test_host_profiles_measure_the_engine(monkeypatch, minimal_batch, caplog):
     assert sum("calibration failed" in r.getMessage() for r in caplog.records) == 2
 
 
-def test_default_is_the_card(monkeypatch):
-    """Unset, both variables mean the card, and ``auto`` is a value of its
-    own; ``host-piecewise`` and unknown values raise."""
+def test_default_is_the_card(monkeypatch, minimal_batch):
+    """Unset, both variables mean the card, and ``auto`` and
+    ``host-piecewise`` are values of their own: on the minimal batch
+    ``host-piecewise`` gives host placement's answers without the device
+    path, and on the prover it is the device; unknown values raise."""
     monkeypatch.delenv("KZG_TORCH_EVAL", raising=False)
     monkeypatch.delenv("KZG_TORCH_PROVER", raising=False)
     assert TB.placement("KZG_TORCH_EVAL") == TB.placement("KZG_TORCH_PROVER") == "device"
-    monkeypatch.setenv("KZG_TORCH_EVAL", "auto")
-    assert TB.placement("KZG_TORCH_EVAL") == "auto"
-    for bad, match in (("host-piecewise", "not ported"), ("tpu", "device, host or auto")):
-        monkeypatch.setenv("KZG_TORCH_EVAL", bad)
-        with pytest.raises(ValueError, match=match):
-            TB.placement("KZG_TORCH_EVAL")
+    for mode in ("auto", "host-piecewise"):
+        monkeypatch.setenv("KZG_TORCH_EVAL", mode)
+        assert TB.placement("KZG_TORCH_EVAL") == mode
+    settings, blobs, cs, ps = minimal_batch
+    backend = TorchBackend(device="cpu")
+    for cs_ in (cs, cs[::-1]):
+        monkeypatch.setenv("KZG_TORCH_EVAL", "host")
+        want = backend.verify_blob_batch_pipeline(settings, blobs, cs_, ps)
+        monkeypatch.setenv("KZG_TORCH_EVAL", "host-piecewise")
+        monkeypatch.setattr(backend, "_verify_batch_device", lambda *a: pytest.fail("host-piecewise reached the device path"))
+        assert backend.verify_blob_batch_pipeline(settings, blobs, cs_, ps) is want is (cs_ is cs)
+    monkeypatch.setenv("KZG_TORCH_PROVER", "host-piecewise")
+    assert backend._prover_mode(settings) == "device"
+    monkeypatch.setenv("KZG_TORCH_EVAL", "tpu")
+    with pytest.raises(ValueError, match="expected one of device, host, auto, host-piecewise"):
+        TB.placement("KZG_TORCH_EVAL")
 
 
 def test_mesh_rule(monkeypatch):
