@@ -2906,14 +2906,6 @@ def vectors_by_placement(backend, settings) -> dict:
     return report
 
 
-# Fp products (CIOS) of the tower's Fp12 functions as csrc/tower.cuh runs
-# them: the product 54 (3 Fp6 products of 6 Fp2 products of 3), the
-# squaring 36, the Granger-Scott squaring 18 (9 Fp2 squarings of 2), the
-# Frobenius 15 (5 Fp2 products), the sparse line product 42 (14 Fp2
-# products), the inversion 107 besides its Fermat chain; and those of a
-# Miller step's tangent line, doubling, chord line and mixed add.
-FP12_PRODUCTS = {"mul": 54, "sqr": 36, "cyclo_sqr": 18, "frobenius": 15, "mul_by_line": 42, "inv": 107}
-LINE_PRODUCTS = {"tangent": 23, "double": 25, "chord": 16, "madd": 39}
 PAIRING_KS = (1, 64, 1024)  # checks a P2 / P3 launch is timed at
 PAIRING_P1_N = 4096  # Fp12 elements of each P1 launch
 PAIRING_PLAIN_K = 64  # checks the plain P2 and P3 run at (K = 1 is its first lane)
@@ -2925,27 +2917,18 @@ MIN_RECORDED_PAIRINGS = 74
 
 def inv_chain(p: int) -> tuple[int, int]:
     """(products, squarings) of the Fermat chain p - 2 in csrc/tower.cuh
-    fe2_inv (field.cuh pow_const: the table, four squarings a further 4-bit
-    digit and a product a nonzero one), the norm's two squarings included."""
+    (field.cuh pow_const: the table, four squarings a further 4-bit digit
+    and a product a nonzero one)."""
     digits = [int(c, 16) for c in f"{p - 2:x}"]
-    return max(digits) - 1 + sum(1 for d in digits[1:] if d), 4 * (len(digits) - 1) + 2
+    return max(digits) - 1 + sum(1 for d in digits[1:] if d), 4 * (len(digits) - 1)
 
 
-def miller_products(bits) -> int:
-    """Fp products of one active Miller lane over ``bits`` (below the MSB)."""
-    step = FP12_PRODUCTS["sqr"] + LINE_PRODUCTS["tangent"] + FP12_PRODUCTS["mul_by_line"] + LINE_PRODUCTS["double"]
-    add = LINE_PRODUCTS["chord"] + FP12_PRODUCTS["mul_by_line"] + LINE_PRODUCTS["madd"]
-    return len(bits) * step + sum(bits) * add
+def program_products(built: dict, kernel: str, names) -> int:
+    """Fp products of the programs ``names`` of ``kernel`` run in order
+    (ops/pairing_programs.py), the Fermat chains apart."""
+    from kzg_rust_tpu_torch.ops import pairing_programs as PP
 
-
-def final_exp_products(bits) -> int:
-    """Fp products of one final exponentiation (the Fermat chain's apart):
-    the easy part (3 products, an inversion, 2 Frobenius), five
-    exponentiations by x, the chain's 3 products and a Frobenius, the
-    tail's 4 products, 2 Frobenius and a Granger-Scott squaring."""
-    p = FP12_PRODUCTS
-    exp = len(bits) * p["cyclo_sqr"] + sum(bits) * p["mul"]
-    return 3 * p["mul"] + p["inv"] + 2 * p["frobenius"] + 5 * exp + 3 * p["mul"] + p["frobenius"] + 4 * p["mul"] + 2 * p["frobenius"] + p["cyclo_sqr"]
+    return sum(built[kernel]["programs"][name].count(PP.LEVEL_MUL) for name in names)
 
 
 def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dict]:
@@ -2954,9 +2937,10 @@ def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dic
     squaring on cyclotomic elements), P2 (``kzg_miller_loop``) at [2, 1]
     and [2, 64] and P3 (``kzg_final_exp``) with the real |x| at K = 1 and
     64 and with the tiny bits (1, 0), each value against its plain version;
-    P2 and P3 timed at K = 1, 64 and 1024 (CUDA events, median of 3); every
-    pairing that phases 3 and 3e handed the engine through
-    ``pairings_verify_device``, one at a time and as one batched call, plus
+    P2 and P3 timed at K = 1, 64 and 1024 (CUDA events, median of 3), and
+    swept there over the lanes a group G (8, 16, 32), each variant's value
+    equal to the default launch's; every pairing that phases 3 and 3e
+    handed the engine through ``pairings_verify_device``, one at a time and as one batched call, plus
     lanes with an infinity argument, each answer the engine's and the
     expected one; one check at K = 1 on the host clock beside the engine's.
     Returns the rows (the P rows of the kernels line) and the report."""
@@ -2969,15 +2953,17 @@ def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dic
     from kzg_rust_tpu_torch.golden.field import P as FP_P
     from kzg_rust_tpu_torch.ops import limbs as L
     from kzg_rust_tpu_torch.ops import pairing as PR
+    from kzg_rust_tpu_torch.ops import pairing_programs as PP
     from kzg_rust_tpu_torch.ops import tower as T
 
     t_phase = time.perf_counter()
+    built = PP.build()
     imad_s = sms * IMAD_PER_CLOCK_PER_SM * sm_clock_hz
     mul_ops, sqr_ops = 2 * (2 * 144 + 12), 2 * (78 + 144 + 12)  # IMADs of an Fp product and squaring
     chain_p, chain_s = inv_chain(FP_P)
     src = "kzg_rust_tpu_torch/csrc/pairing_kernels.cu"
     jp = "kzg_rust_tpu/ops/pairing.py"
-    rows, report = [], {"ptxas": {}, "ms": {}, "checks": {}}
+    rows, report = [], {"ptxas": {}, "ms": {}, "sweep": {}, "checks": {}}
 
     def row(name, got, want, timed, plain_s, lanes_ops, nbytes, replaces, keep, shape, reps=3, op=None):
         g64, w64 = got.to(torch.int64) & 0xFFFFFFFF, want.to(torch.int64) & 0xFFFFFFFF
@@ -3035,7 +3021,7 @@ def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dic
         got = T.fp12_op(op, x, y)
         want, plain_s = plain_timed(T.fp12_op_plain, op, x, y)
         k = x.shape[0]
-        ops = k * (FP12_PRODUCTS[op] * mul_ops + ((chain_p * mul_ops + chain_s * sqr_ops) if op == "inv" else 0))
+        ops = k * (program_products(built, "p1", [op]) * mul_ops + ((chain_p * mul_ops + chain_s * sqr_ops) if op == "inv" else 0))
         words = 144 + {"mul": 144, "mul_by_line": 72}.get(op, 0) + 144
         row("P1 kzg_fp12_op", got, want, lambda: T.fp12_op(op, x, y), plain_s, ops, k * words * 4, "none (one Fp12 function of ops/tower.py a launch)", op == "mul", [k, 144], reps=10, op=op)
 
@@ -3051,8 +3037,9 @@ def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dic
     args_of = {k: (xp[:, :k].contiguous(), yp[:, :k].contiguous(), q[:, :k].contiguous(), active[:, :k].contiguous()) for k in PAIRING_KS}
     f_of = {k: PR.miller_loop(*args_of[k]) for k in PAIRING_KS}
     kp = PAIRING_PLAIN_K
-    p2_ops = {k: int(active[:, :k].sum()) * miller_products(PR._X_BITS) * mul_ops for k in PAIRING_KS}
-    p3_ops = {k: k * (final_exp_products(PR._ABS_X_BITS) * mul_ops + chain_p * mul_ops + chain_s * sqr_ops) for k in PAIRING_KS}
+    p2_ops = {k: int(active[:, :k].sum()) * program_products(built, "p2", PP.p2_sequence()) * mul_ops for k in PAIRING_KS}
+    p3_products = program_products(built, "p3", PP.p3_sequence(PR._ABS_X_BITS))
+    p3_ops = {k: k * (p3_products * mul_ops + chain_p * mul_ops + chain_s * sqr_ops) for k in PAIRING_KS}
     want2, plain_s = plain_timed(PR.miller_loop_plain, *args_of[kp])
     row("P2 kzg_miller_loop", f_of[kp], want2, lambda: PR.miller_loop(*args_of[kp]), plain_s, p2_ops[kp], 2 * kp * (72 * 4 + 1 + 144 * 4), f"{jp}:202 miller_loop_kernel (XLA)", True, [2, kp])
     want3, plain_s = plain_timed(PR.final_exp_plain, f_of[kp], PR._ABS_X_BITS, True)
@@ -3073,6 +3060,19 @@ def pairing_phase(device, sm_clock_hz: float, sms: int) -> tuple[list[dict], dic
         report["ms"][f"P3 K={k}"] = graph_ms(lambda: PR.final_exp(f_of[k]), 3)
         report["ms"][f"P2 K={k} bound"] = p2_ops[k] / imad_s * 1e3
         report["ms"][f"P3 K={k} bound"] = p3_ops[k] / imad_s * 1e3
+        report["ms"][f"P2 K={k} G"] = T.pairing_group(2 * k)
+        report["ms"][f"P3 K={k} G"] = T.pairing_group(k)
+        # The sweep: every G for P2 and P3, each variant's words the
+        # default launch's.
+        value = PR.final_exp(f_of[k], value=True)
+        for g in T.GROUP_LANES:
+            if not torch.equal(PR.miller_loop(*args_of[k], group=g), f_of[k]):
+                raise AssertionError(f"P2 at K = {k}, G = {g}: the value differs from the default launch's")
+            report["sweep"][f"P2 K={k} G={g}"] = graph_ms(lambda: PR.miller_loop(*args_of[k], group=g), 3)
+            if not torch.equal(PR.final_exp(f_of[k], value=True, group=g), value):
+                raise AssertionError(f"P3 at K = {k}, G = {g}: the value differs from the default launch's")
+            report["sweep"][f"P3 K={k} G={g}"] = graph_ms(lambda: PR.final_exp(f_of[k], group=g), 3)
+        log(f"pairing: sweep at K = {k} (ms, CUDA graph replays): {json.dumps({key: round(v, 4) for key, v in report['sweep'].items() if f' K={k} ' in key})}")
 
     # Every recorded pairing through the device entry point: one at a time,
     # then all in one batched call, with infinity lanes added.

@@ -1,81 +1,46 @@
-// The extension tower Fp2 -> Fp6 -> Fp12 for Hopper (sm_90a): the device
-// functions of the pairing kernels (pairing_kernels.cu), one thread an
-// element, on csrc/field.cuh's Fp product, squaring, add and sub.
+// The extension tower Fp2 -> Fp6 -> Fp12 for Hopper (sm_90a) as programs
+// over a lane group: the interpreter that the pairing kernels
+// (pairing_kernels.cu) run, on csrc/field.cuh's Fp product, add and sub.
 //
-// The formulas are the JAX package's kzg_rust_tpu/ops/tower.py (and through
-// it golden/field.py:137-393):
-//
-//     Fp2  = c0 + c1 u        u^2 = -1
-//     Fp6  = c0 + c1 v + c2 v^2        v^3 = xi = 1 + u
-//     Fp12 = c0 + c1 w        w^2 = v
-//
-// An element is its Fp coefficients in the JAX nesting order, so an Fe12 is
-// the 144 words of the port's [..., 2, 3, 2, 12] tensors (ops/tower.py).
-// Every value is canonical Montgomery (R = 2^384), so a function gives the
-// same words as the plain PyTorch version of the same field operations.
-// Fp12's Granger-Scott squaring (fe12_cyclo_sqr) is the JAX formula itself:
-// it squares only cyclotomic elements, and on any other input it gives the
-// formula's words, as the JAX function does.
-//
-// Build time: the Fp product is inline asm (field.cuh), so only the Fp2
-// product, squaring and Fp scaling inline it; every Fp6 and Fp12 function
-// and the inversions are __noinline__ calls on elements in local memory,
-// which keeps the pairing's 63-step loops (#pragma unroll 1) a few
-// thousand instructions long.  Every function here may take its output as
-// one of its inputs: each writes its result after its last read.
+// A lane group of G lanes (G = 8, 16 or 32, aligned in its warp) owns a
+// frame of Fp slots in shared memory, 12 words (48 bytes) a slot: the
+// kernel's registers (its Fp12 values, the G2 point, the pairing's
+// inputs), the constants, and scratch.  A program (pairing_programs.cuh,
+// which ops/_build.py generates into the build directory by
+// kzg_rust_tpu_torch/ops/pairing_programs.py from the
+// formulas of the JAX package's ops/tower.py and ops/pairing.py) is a
+// range of levels; a level is a set of independent Fp operations on
+// slots: Montgomery products, linear sums a +- b +- c, or one Fermat
+// inversion.  Lane j of a group takes operations j, j + G, ... of a level:
+// it loads the operands from the frame into registers, runs the product
+// (field.cuh cios_mul, inlined) or the adds, and stores the result; then
+// the group syncs (__syncwarp over its lanes) before the next level.  So a
+// Fp12 product's 54 independent Fp products run side by side over the
+// group's lanes, and the state lives in shared memory, never in local
+// memory.  An inversion level runs a^(p-2) by K1's fixed-window chain
+// (kInvDigits) over kInvLanes = 4 lanes a copy with kernel A's lane
+// product (field.cuh lane_mul: values below 2p, reduced once at the end);
+// every lane of the warp must run it (its shuffles name the whole warp).
+// Every value is canonical Montgomery (R = 2^384), so each
+// program gives the words of the plain PyTorch version of the same
+// function.
 
 #pragma once
 
 #include "field.cuh"
+#include "pairing_programs.cuh"
 
 namespace kzg {
 
 struct Fe {
   uint32_t w[12];
 };
-struct Fe2 {
-  Fe c0, c1;
-};
-struct Fe6 {
-  Fe2 c[3];
-};
-struct Fe12 {
-  Fe6 c[2];
-};
 
 // Montgomery constants (checked against golden/field.py by the CPU tests,
-// which parse this file): 1, and the Frobenius coefficients gamma^k =
-// xi^(k (p - 1) / 6), k = 0 .. 5 (golden/field.py:412, the JAX
-// tower.py:277), each c0 then c1.
+// which parse this file): 1, for the kernels' initial values.
 __constant__ Fe kOneMont = {{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau,
                              0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,
                              0xfa80e493u, 0x15f65ec3u}};
-__constant__ Fe2 kGamma[6] = {
-    {{{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
-       0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u}},
-     {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-       0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}}},
-    {{{0xb319d465u, 0x07089552u, 0xb50a8313u, 0xc6695f92u, 0xd117228fu, 0x97e83cccu,
-       0xb2dc29eeu, 0xa35baecau, 0x5daace4du, 0x1ce393eau, 0xb0fb66ebu, 0x08f2220fu}},
-     {{0x4ce5d646u, 0xb2f66aadu, 0xfc497cecu, 0x5842a06bu, 0x2599d394u, 0xcf4895d4u,
-       0x40a8e8d0u, 0xc11b9cbau, 0xe5a0de89u, 0x2e3813cbu, 0x88847fafu, 0x110eefdau}}},
-    {{{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-       0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
-     {{0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu,
-       0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u}}},
-    {{{0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
-       0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}},
-     {{0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
-       0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}}},
-    {{{0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu, 0x50880866u,
-       0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu}},
-     {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-       0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}}},
-    {{{0x0dbce43fu, 0x82d83cf5u, 0xdf9d018fu, 0xa2813e53u, 0x3c65e181u, 0xc6f0caa5u,
-       0x8d50fe95u, 0x7525cf52u, 0xf4798a6bu, 0x4a85ed50u, 0x6cf8eebdu, 0x171da0fdu}},
-     {{0xf242c66cu, 0x3726c30au, 0xd1b6fe70u, 0x7c2ac1aau, 0xba4b14a2u, 0xa04007fbu,
-       0x66341429u, 0xef517c32u, 0x4ed2226bu, 0x0095ba65u, 0xcc86f7ddu, 0x02e370ecu}}},
-};
 
 // The Fermat inversion's exponent p - 2 as the 4-bit digits of the chain
 // code that K1's kzg_fp_pow_const runs (field.cuh pow_const), most
@@ -89,397 +54,168 @@ __constant__ PowDigits kInvDigits = {
     96,
     15};
 constexpr int kInvTop = 15;
+constexpr int kInvLanes = 4;  // lanes of one Fermat inversion
 
-// ---------------------------------------------------------------------------
-// Fp
-// ---------------------------------------------------------------------------
+constexpr int kSlotWords = 12;
+constexpr int kWarp = 32;  // threads a block: a block is one warp of 32 / G groups
 
-__device__ __forceinline__ void fe_add(Fe& r, const Fe& a, const Fe& b) {
-  Fe t;
-  fp_add(t.w, a.w, b.w);
-  r = t;
-}
+// Level codes of pairing_programs.cuh (2, the rest: an inversion).
+constexpr uint32_t kCodeMul = 0, kCodeLin = 1;
 
-__device__ __forceinline__ void fe_sub(Fe& r, const Fe& a, const Fe& b) {
-  Fe t;
-  fp_sub(t.w, a.w, b.w);
-  r = t;
-}
-
-__device__ __forceinline__ void fe_neg(Fe& r, const Fe& a) {
-  const Fe zero = {};
-  fe_sub(r, zero, a);
-}
-
-__device__ __forceinline__ void fe_mul(Fe& r, const Fe& a, const Fe& b) { fp_mont_mul(r.w, a.w, b.w); }
-
-__device__ __forceinline__ void fe_sqr(Fe& r, const Fe& a) { fp_mont_sqr(r.w, a.w); }
-
-__device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
-  uint32_t d = 0;
-#pragma unroll
-  for (int j = 0; j < 12; j++) d |= a.w[j] ^ b.w[j];
-  return d == 0;
-}
-
-// ---------------------------------------------------------------------------
-// Fp2
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ Fe2 fe2_one() {
-  Fe2 r = {};
-  r.c0 = kOneMont;
-  return r;
-}
-
-__device__ __forceinline__ void fe2_add(Fe2& r, const Fe2& a, const Fe2& b) {
-  fe_add(r.c0, a.c0, b.c0);
-  fe_add(r.c1, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void fe2_sub(Fe2& r, const Fe2& a, const Fe2& b) {
-  fe_sub(r.c0, a.c0, b.c0);
-  fe_sub(r.c1, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void fe2_neg(Fe2& r, const Fe2& a) {
-  fe_neg(r.c0, a.c0);
-  fe_neg(r.c1, a.c1);
-}
-
-__device__ __forceinline__ void fe2_dbl(Fe2& r, const Fe2& a) { fe2_add(r, a, a); }
-
-__device__ __forceinline__ void fe2_conj(Fe2& r, const Fe2& a) {
-  r.c0 = a.c0;
-  fe_neg(r.c1, a.c1);
-}
-
-// Multiply by xi = 1 + u: (c0 - c1, c0 + c1).
-__device__ __forceinline__ void fe2_mul_xi(Fe2& r, const Fe2& a) {
-  Fe t0, t1;
-  fe_sub(t0, a.c0, a.c1);
-  fe_add(t1, a.c0, a.c1);
-  r.c0 = t0;
-  r.c1 = t1;
-}
-
-// Karatsuba over u^2 = -1: 3 Fp products.
-__device__ __noinline__ void fe2_mul(Fe2& r, const Fe2& a, const Fe2& b) {
-  Fe s, t, t0, t1, m;
-  fe_add(s, a.c0, a.c1);
-  fe_add(t, b.c0, b.c1);
-  fe_mul(t0, a.c0, b.c0);
-  fe_mul(t1, a.c1, b.c1);
-  fe_mul(m, s, t);
-  fe_sub(m, m, t0);
-  fe_sub(r.c0, t0, t1);
-  fe_sub(r.c1, m, t1);
-}
-
-// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 Fp products.
-__device__ __noinline__ void fe2_sqr(Fe2& r, const Fe2& a) {
-  Fe s, d, a2, c0, c1;
-  fe_add(s, a.c0, a.c1);
-  fe_sub(d, a.c0, a.c1);
-  fe_add(a2, a.c0, a.c0);
-  fe_mul(c0, s, d);
-  fe_mul(c1, a2, a.c1);
-  r.c0 = c0;
-  r.c1 = c1;
-}
-
-__device__ __noinline__ void fe2_mul_fp(Fe2& r, const Fe2& a, const Fe& k) {
-  Fe c0, c1;
-  fe_mul(c0, a.c0, k);
-  fe_mul(c1, a.c1, k);
-  r.c0 = c0;
-  r.c1 = c1;
-}
-
-// (a0 - a1 u) / (a0^2 + a1^2), the norm inverted by Fermat with K1's chain
-// (field.cuh pow_const over this thread's column of the block's shared
-// table, T threads a block).  inv(0) = 0.
-template <int T>
-__device__ __noinline__ void fe2_inv(Fe2& r, const Fe2& a, uint32_t* col) {
-  Fe n0, n1, ninv, c0, c1;
-  fe_sqr(n0, a.c0);
-  fe_sqr(n1, a.c1);
-  fe_add(n0, n0, n1);
-  pow_const<Fp, T>(ninv.w, n0.w, col, kInvDigits);
-  fe_mul(c0, a.c0, ninv);
-  fe_mul(c1, a.c1, ninv);
-  fe_neg(r.c1, c1);
-  r.c0 = c0;
-}
-
-// ---------------------------------------------------------------------------
-// Fp6
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void fe6_add(Fe6& r, const Fe6& a, const Fe6& b) {
-#pragma unroll
-  for (int k = 0; k < 3; k++) fe2_add(r.c[k], a.c[k], b.c[k]);
-}
-
-__device__ __forceinline__ void fe6_sub(Fe6& r, const Fe6& a, const Fe6& b) {
-#pragma unroll
-  for (int k = 0; k < 3; k++) fe2_sub(r.c[k], a.c[k], b.c[k]);
-}
-
-__device__ __forceinline__ void fe6_neg(Fe6& r, const Fe6& a) {
-#pragma unroll
-  for (int k = 0; k < 3; k++) fe2_neg(r.c[k], a.c[k]);
-}
-
-__device__ __forceinline__ void fe6_mul_by_v(Fe6& r, const Fe6& a) {
-  Fe2 t;
-  fe2_mul_xi(t, a.c[2]);
-  r.c[2] = a.c[1];
-  r.c[1] = a.c[0];
-  r.c[0] = t;
-}
-
-// Karatsuba-Toom over v^3 = xi: 6 Fp2 products (golden/field.py:275-287).
-__device__ __noinline__ void fe6_mul(Fe6& r, const Fe6& a, const Fe6& b) {
-  Fe2 t0, t1, t2, s, u, m, c0, c1;
-  fe2_mul(t0, a.c[0], b.c[0]);
-  fe2_mul(t1, a.c[1], b.c[1]);
-  fe2_mul(t2, a.c[2], b.c[2]);
-  // c0 = t0 + xi ((a1 + a2)(b1 + b2) - t1 - t2)
-  fe2_add(s, a.c[1], a.c[2]);
-  fe2_add(u, b.c[1], b.c[2]);
-  fe2_mul(m, s, u);
-  fe2_sub(m, m, t1);
-  fe2_sub(m, m, t2);
-  fe2_mul_xi(m, m);
-  fe2_add(c0, t0, m);
-  // c1 = (a0 + a1)(b0 + b1) - t0 - t1 + xi t2
-  fe2_add(s, a.c[0], a.c[1]);
-  fe2_add(u, b.c[0], b.c[1]);
-  fe2_mul(m, s, u);
-  fe2_sub(m, m, t0);
-  fe2_sub(m, m, t1);
-  fe2_mul_xi(u, t2);
-  fe2_add(c1, m, u);
-  // c2 = (a0 + a2)(b0 + b2) - t0 - t2 + t1
-  fe2_add(s, a.c[0], a.c[2]);
-  fe2_add(u, b.c[0], b.c[2]);
-  fe2_mul(m, s, u);
-  fe2_sub(m, m, t0);
-  fe2_sub(m, m, t2);
-  fe2_add(r.c[2], m, t1);
-  r.c[0] = c0;
-  r.c[1] = c1;
-}
-
-__device__ __noinline__ void fe6_mul_fp2(Fe6& r, const Fe6& a, const Fe2& k) {
-#pragma unroll 1
-  for (int j = 0; j < 3; j++) fe2_mul(r.c[j], a.c[j], k);
-}
-
-// golden/field.py:303-313.
-template <int T>
-__device__ __noinline__ void fe6_inv(Fe6& r, const Fe6& a, uint32_t* col) {
-  Fe2 t0, t1, t2, x, y;
-  fe2_sqr(t0, a.c[0]);
-  fe2_mul(x, a.c[1], a.c[2]);
-  fe2_mul_xi(x, x);
-  fe2_sub(t0, t0, x);  // a0^2 - xi a1 a2
-  fe2_sqr(t1, a.c[2]);
-  fe2_mul_xi(t1, t1);
-  fe2_mul(x, a.c[0], a.c[1]);
-  fe2_sub(t1, t1, x);  // xi a2^2 - a0 a1
-  fe2_sqr(t2, a.c[1]);
-  fe2_mul(x, a.c[0], a.c[2]);
-  fe2_sub(t2, t2, x);  // a1^2 - a0 a2
-  fe2_mul(x, a.c[2], t1);
-  fe2_mul(y, a.c[1], t2);
-  fe2_add(x, x, y);
-  fe2_mul_xi(x, x);
-  fe2_mul(y, a.c[0], t0);
-  fe2_add(x, y, x);  // a0 t0 + xi (a2 t1 + a1 t2)
-  fe2_inv<T>(x, x, col);
-  fe2_mul(r.c[0], t0, x);
-  fe2_mul(r.c[1], t1, x);
-  fe2_mul(r.c[2], t2, x);
-}
-
-// ---------------------------------------------------------------------------
-// Fp12
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ Fe12 fe12_one() {
-  Fe12 r = {};
-  r.c[0].c[0].c0 = kOneMont;
-  return r;
-}
-
-__device__ __forceinline__ bool fe12_is_one(const Fe12& a) {
-  const Fe12 one = fe12_one();
-  bool eq = true;
-#pragma unroll
-  for (int h = 0; h < 2; h++)
-#pragma unroll
-    for (int k = 0; k < 3; k++)
-      eq = eq && fe_eq(a.c[h].c[k].c0, one.c[h].c[k].c0) && fe_eq(a.c[h].c[k].c1, one.c[h].c[k].c1);
-  return eq;
-}
-
-__device__ __forceinline__ void fe12_conj(Fe12& r, const Fe12& a) {
-  r.c[0] = a.c[0];
-  fe6_neg(r.c[1], a.c[1]);
-}
-
-// 3 Fp6 products.
-__device__ __noinline__ void fe12_mul(Fe12& r, const Fe12& a, const Fe12& b) {
-  Fe6 t0, t1, s, u;
-  fe6_mul(t0, a.c[0], b.c[0]);
-  fe6_mul(t1, a.c[1], b.c[1]);
-  fe6_add(s, a.c[0], a.c[1]);
-  fe6_add(u, b.c[0], b.c[1]);
-  fe6_mul(s, s, u);
-  fe6_sub(s, s, t0);
-  fe6_sub(r.c[1], s, t1);
-  fe6_mul_by_v(t1, t1);
-  fe6_add(r.c[0], t0, t1);
-}
-
-// Complex squaring, 2 Fp6 products: c0 = (a0 + a1)(a0 + v a1) - t - v t,
-// c1 = 2 t with t = a0 a1.
-__device__ __noinline__ void fe12_sqr(Fe12& r, const Fe12& a) {
-  Fe6 t, s, u;
-  fe6_mul(t, a.c[0], a.c[1]);
-  fe6_add(s, a.c[0], a.c[1]);
-  fe6_mul_by_v(u, a.c[1]);
-  fe6_add(u, a.c[0], u);
-  fe6_mul(s, s, u);
-  fe6_sub(s, s, t);
-  fe6_mul_by_v(u, t);
-  fe6_sub(r.c[0], s, u);
-  fe6_add(r.c[1], t, t);
-}
-
-template <int T>
-__device__ __noinline__ void fe12_inv(Fe12& r, const Fe12& a, uint32_t* col) {
-  Fe6 n0, n1;
-  fe6_mul(n0, a.c[0], a.c[0]);
-  fe6_mul(n1, a.c[1], a.c[1]);
-  fe6_mul_by_v(n1, n1);
-  fe6_sub(n0, n0, n1);
-  fe6_inv<T>(n0, n0, col);
-  fe6_mul(n1, a.c[1], n0);
-  fe6_mul(r.c[0], a.c[0], n0);
-  fe6_neg(r.c[1], n1);
-}
-
-// z = 2 (t - g) + t, or 2 (t + g) + t with plus: a term of fe12_cyclo_sqr.
-__device__ __forceinline__ void cyclo_term(Fe2& z, const Fe2& t, const Fe2& g, bool plus) {
-  Fe2 s;
-  if (plus)
-    fe2_add(s, t, g);
+// The lanes of group g of G lanes in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int g) {
+  if constexpr (G == 32)
+    return 0xffffffffu;
   else
-    fe2_sub(s, t, g);
-  fe2_dbl(s, s);
-  fe2_add(z, s, t);
+    return ((1u << G) - 1u) << (G * (g % (32 / G)));
 }
 
-// Granger-Scott squaring, 9 Fp2 squarings (golden/field.py fp12_cyclo_sqr).
-__device__ __noinline__ void fe12_cyclo_sqr(Fe12& r, const Fe12& a) {
-  const Fe2 &g0 = a.c[0].c[0], &g1 = a.c[0].c[1], &g2 = a.c[0].c[2];
-  const Fe2 &g3 = a.c[1].c[0], &g4 = a.c[1].c[1], &g5 = a.c[1].c[2];
-  Fe2 t0, t1, t2, t3, t4, t5, t6, t7, t8, s;
-  fe2_sqr(t0, g4);
-  fe2_sqr(t1, g0);
-  fe2_add(s, g4, g0);
-  fe2_sqr(t6, s);
-  fe2_sub(t6, t6, t0);
-  fe2_sub(t6, t6, t1);  // 2 g0 g4
-  fe2_sqr(t2, g2);
-  fe2_sqr(t3, g3);
-  fe2_add(s, g2, g3);
-  fe2_sqr(t7, s);
-  fe2_sub(t7, t7, t2);
-  fe2_sub(t7, t7, t3);  // 2 g2 g3
-  fe2_sqr(t4, g5);
-  fe2_sqr(t5, g1);
-  fe2_add(s, g5, g1);
-  fe2_sqr(t8, s);
-  fe2_sub(t8, t8, t4);
-  fe2_sub(t8, t8, t5);
-  fe2_mul_xi(t8, t8);  // 2 g1 g5 xi
-  fe2_mul_xi(t0, t0);
-  fe2_add(t0, t0, t1);  // g0^2 + xi g4^2
-  fe2_mul_xi(t2, t2);
-  fe2_add(t2, t2, t3);  // g3^2 + xi g2^2
-  fe2_mul_xi(t4, t4);
-  fe2_add(t4, t4, t5);  // g1^2 + xi g5^2
-  Fe12 z;
-  cyclo_term(z.c[0].c[0], t0, g0, false);
-  cyclo_term(z.c[0].c[1], t2, g1, false);
-  cyclo_term(z.c[0].c[2], t4, g2, false);
-  cyclo_term(z.c[1].c[0], t8, g3, true);
-  cyclo_term(z.c[1].c[1], t6, g4, true);
-  cyclo_term(z.c[1].c[2], t7, g5, true);
-  r = z;
+__device__ __forceinline__ void slot_load(uint32_t* v, const uint32_t* frame, uint32_t slot) {
+  const uint4* p = reinterpret_cast<const uint4*>(frame + slot * kSlotWords);
+#pragma unroll
+  for (int k = 0; k < 3; k++) {
+    const uint4 x = p[k];
+    v[4 * k] = x.x;
+    v[4 * k + 1] = x.y;
+    v[4 * k + 2] = x.z;
+    v[4 * k + 3] = x.w;
+  }
 }
 
-// The p-power Frobenius: coefficient k of w^k (a.c[k % 2].c[k / 2])
-// conjugated and multiplied by gamma^k.
-__device__ __noinline__ void fe12_frobenius(Fe12& r, const Fe12& a) {
-  Fe12 z;
+__device__ __forceinline__ void slot_store(uint32_t* frame, uint32_t slot, const uint32_t* v) {
+  uint4* p = reinterpret_cast<uint4*>(frame + slot * kSlotWords);
+#pragma unroll
+  for (int k = 0; k < 3; k++) p[k] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+}
+
+// An operation is two words of kOps: x = code << 30 | b << 20 | a << 10 |
+// dst, y = sc << 11 | sb << 10 | c, over slots of the group's frame.
+
+// A product: frame[dst] = frame[a] * frame[b].
+__device__ __forceinline__ void op_mul(uint32_t* frame, uint2 op) {
+  uint32_t a[12], b[12];
+  slot_load(a, frame, (op.x >> 10) & 1023u);
+  slot_load(b, frame, (op.x >> 20) & 1023u);
+  fp_mont_mul(a, a, b);
+  slot_store(frame, op.x & 1023u, a);
+}
+
+// A linear op: frame[dst] = frame[a] +- frame[b] +- frame[c].
+__device__ __forceinline__ void op_lin(uint32_t* frame, uint2 op) {
+  uint32_t a[12], b[12];
+  slot_load(a, frame, (op.x >> 10) & 1023u);
+  slot_load(b, frame, (op.x >> 20) & 1023u);
+  if ((op.y >> 10) & 1u)
+    fp_sub(a, a, b);
+  else
+    fp_add(a, a, b);
+  slot_load(b, frame, op.y & 1023u);
+  if ((op.y >> 11) & 1u)
+    fp_sub(a, a, b);
+  else
+    fp_add(a, a, b);
+  slot_store(frame, op.x & 1023u, a);
+}
+
+// y = x^(p-2) over the L lanes of this lane's aligned subgroup (lane r of
+// it holds W = 12 / L words of each value): kInvDigits's chain, the table
+// in this thread's column col of the block's table ([entry][word of the
+// part][thread], kWarp threads), every product lane_mul's (values below
+// 2p), the result gathered and reduced once.  x whole in every lane; y
+// whole in every lane.  Every lane of the warp runs it.
+template <int L>
+__device__ __forceinline__ void inv_lanes(uint32_t* y, const uint32_t* x, uint32_t* col, int r) {
+  constexpr int W = Fp::N / L;
+  uint32_t m[W], acc[W], whole[Fp::N];
+  uint32_t p[Fp::N];
+#pragma unroll
+  for (int j = 0; j < Fp::N; j++) p[j] = fp_mod_word(j);
+  lane_part<L>(m, p, r);
+  lane_part<L>(acc, x, r);
+  table_put<W, kWarp>(col, 1, acc);
 #pragma unroll 1
-  for (int h = 0; h < 2; h++) {
+  for (uint32_t k = 2; k <= kInvDigits.top; k++) {
+    lane_mul<L>(acc, acc, x, m, r);
+    table_put<W, kWarp>(col, k, acc);
+  }
+  table_get<W, kWarp>(acc, col, kInvDigits.d[0]);
 #pragma unroll 1
-    for (int k = 0; k < 3; k++) {
-      const int e = 2 * k + h;
-      Fe2 x;
-      fe2_conj(x, a.c[h].c[k]);
-      if (e) {
-        const Fe2 g = kGamma[e];
-        fe2_mul(x, x, g);
-      }
-      z.c[h].c[k] = x;
+  for (uint32_t k = 1; k < kInvDigits.count; k++) {
+#pragma unroll 1
+    for (int s = 0; s < 4; s++) {
+      lane_gather<L>(whole, acc);
+      lane_mul<L>(acc, acc, whole, m, r);
+    }
+    const uint32_t d = kInvDigits.d[k];
+    if (d) {
+      uint32_t e[W];
+      table_get<W, kWarp>(e, col, d);
+      lane_gather<L>(whole, acc);
+      lane_mul<L>(acc, e, whole, m, r);
     }
   }
-  r = z;
+  lane_gather<L>(y, acc);
+  fp_reduce_once(y, y);
 }
 
-// (x0 + x1 v + x2 v^2)(y1 v + y2 v^2): 5 Fp2 products.
-__device__ __noinline__ void fe6_mul_sparse01(Fe6& r, const Fe6& a, const Fe2& y1, const Fe2& y2) {
-  Fe2 m11, m22, s, u, c0, c1;
-  fe2_mul(m11, a.c[1], y1);
-  fe2_mul(m22, a.c[2], y2);
-  fe2_add(s, a.c[1], a.c[2]);
-  fe2_add(u, y1, y2);
-  fe2_mul(s, s, u);
-  fe2_add(u, m11, m22);
-  fe2_sub(s, s, u);
-  fe2_mul_xi(c0, s);
-  fe2_mul(s, a.c[0], y1);
-  fe2_mul_xi(u, m22);
-  fe2_add(c1, s, u);
-  fe2_mul(s, a.c[0], y2);
-  fe2_add(r.c[2], s, m11);
-  r.c[0] = c0;
-  r.c[1] = c1;
+// The group's lanes and where its inversion table lies.
+struct Group {
+  uint32_t* frame;  // the group's frame (16-byte aligned)
+  uint32_t* table;  // this thread's column of the block's inversion table
+  int lane;         // lane in the group
+  unsigned mask;    // the group's lanes in the warp
+};
+
+// An inversion level: frame[dst] = frame[a]^(p-2).
+__device__ __forceinline__ void op_inv(const Group& g, uint2 op) {
+  uint32_t x[12];
+  slot_load(x, g.frame, (op.x >> 10) & 1023u);
+  inv_lanes<kInvLanes>(x, x, g.table, g.lane % kInvLanes);
+  if (g.lane == 0) slot_store(g.frame, op.x & 1023u, x);
 }
 
-// f ((c00, 0, 0) + (0, c11, c12) w), the sparse shape of every line
-// (the JAX pairing.py fp12_mul_by_line): 14 Fp2 products against 18.
-__device__ __noinline__ void fe12_mul_by_line(Fe12& r, const Fe12& f, const Fe2& c00, const Fe2& c11,
-                                              const Fe2& c12) {
-  Fe6 t0, t1, s, b;
-  fe6_mul_fp2(t0, f.c[0], c00);
-  fe6_mul_sparse01(t1, f.c[1], c11, c12);
-  fe6_add(s, f.c[0], f.c[1]);
-  b.c[0] = c00;
-  b.c[1] = c11;
-  b.c[2] = c12;
-  fe6_mul(s, s, b);
-  fe6_sub(s, s, t0);
-  fe6_sub(r.c[1], s, t1);
-  fe6_mul_by_v(t1, t1);
-  fe6_add(r.c[0], t0, t1);
+// Run program prog over the group: its levels in order, a sync after each.
+template <int G>
+__device__ __forceinline__ void run_program(const Group& g, int prog) {
+  const uint32_t first = kProgramLevel[prog], last = kProgramLevel[prog + 1];
+#pragma unroll 1
+  for (uint32_t l = first; l < last; l++) {
+    const uint32_t lv = kLevels[l], begin = lv >> 2, end = kLevels[l + 1] >> 2, kind = lv & 3u;
+    if (kind == kCodeMul) {
+#pragma unroll 1
+      for (uint32_t i = begin + g.lane; i < end; i += G) op_mul(g.frame, __ldg(kOps + i));
+    } else if (kind == kCodeLin) {
+#pragma unroll 1
+      for (uint32_t i = begin + g.lane; i < end; i += G) op_lin(g.frame, __ldg(kOps + i));
+    } else {
+      op_inv(g, __ldg(kOps + begin));
+    }
+    __syncwarp(g.mask);
+  }
+}
+
+// The constants of a kernel's frame (kConstWords from entry first) into
+// slots base.. base + count - 1, over the group's lanes.
+template <int G>
+__device__ __forceinline__ void load_consts(const Group& g, int first, int base, int count) {
+  for (int c = g.lane; c < count; c += G) {
+    uint32_t v[12];
+#pragma unroll
+    for (int j = 0; j < 12; j++) v[j] = kConstWords[(first + c) * 12 + j];
+    slot_store(g.frame, base + c, v);
+  }
+}
+
+// Slots [slot, slot + n) of the frame from n consecutive Fp elements at src
+// (global memory), over the group's lanes; and back.
+template <int G>
+__device__ __forceinline__ void load_slots(const Group& g, int slot, const uint32_t* __restrict__ src, int n) {
+  for (int e = g.lane; e < n; e += G) {
+    uint32_t v[12];
+    load_vec<12>(v, reinterpret_cast<const uint4*>(src + 12 * e));
+    slot_store(g.frame, slot + e, v);
+  }
 }
 
 }  // namespace kzg

@@ -4,8 +4,11 @@ Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes).  The libraries go
 into ``kzg_rust_tpu_torch/build/`` (gitignored), named by a hash of the
-sources and flags, at the first launch in a process; all sources build in
-parallel.  ``KZG_TORCH_BUILD_DIR`` overrides the directory.
+sources, the generated headers and the flags, at the first launch in a
+process; all sources build in parallel.  ``KZG_TORCH_BUILD_DIR`` overrides
+the directory.  The generated headers (:func:`generated`: the device
+pairing's program tables, from :mod:`.pairing_programs`) are written into
+the build directory before the compile and found on its include path.
 
 :func:`launch` is the one place a kernel is launched: it checks the
 return code of the C entry point (``cudaGetLastError()`` after the launch)
@@ -68,9 +71,9 @@ ENTRY_POINTS = {
     "kzg_proj_add_mixed": ("msm_kernels.cu", [_P, _P, _P, _I64, _P]),
     "kzg_g1_decompress": ("stage1_kernels.cu", [_P, _P, _P, _P, _I64, _I64, _P, _I64, _P]),
     "kzg_g1_subgroup_check": ("stage1_kernels.cu", [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _P]),
-    "kzg_fp12_op": ("pairing_kernels.cu", [_P, _P, _P, _I64, ctypes.c_int, _P]),
-    "kzg_miller_loop": ("pairing_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, _P]),
-    "kzg_final_exp": ("pairing_kernels.cu", [_P, _P, _I64, _P, _I64, ctypes.c_int, _P]),
+    "kzg_fp12_op": ("pairing_kernels.cu", [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]),
+    "kzg_miller_loop": ("pairing_kernels.cu", [_P, _P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]),
+    "kzg_final_exp": ("pairing_kernels.cu", [_P, _P, _I64, _P, _I64, ctypes.c_int, ctypes.c_int, _P]),
 }
 
 # Launches per entry point since the last reset_launches(): plain ints,
@@ -107,31 +110,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(src: str) -> str:
+def generated() -> dict[str, str]:
+    """The headers that the sources include and Python writes at build
+    time, by file name: ``pairing_programs.cuh``, the device pairing's
+    programs (:func:`.pairing_programs.header_text`)."""
+    from . import pairing_programs
+
+    return {"pairing_programs.cuh": pairing_programs.header_text()}
+
+
+def _digest(headers: dict[str, str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as fh:
                 h.update(name.encode() + fh.read())
-    stem = os.path.splitext(src)[0]
-    return os.path.join(build_dir(), f"lib{stem}-{h.hexdigest()[:12]}.so")
+    for name, text in sorted(headers.items()):
+        h.update(name.encode() + text.encode())
+    return h.hexdigest()[:12]
+
+
+def _write(path: str, text: str) -> None:
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, path)
 
 
 def build() -> dict[str, str]:
-    """Compile every source that has no library yet, all in parallel.
-    Returns source -> library path; raises with nvcc's output on failure."""
+    """Compile every source that has no library yet, all in parallel,
+    the generated headers written first into ``include-<hash>/`` of the
+    build directory.  Returns source -> library path; raises with nvcc's
+    output on failure."""
+    headers = generated()
+    digest = _digest(headers)
     sources = sorted({src for src, _ in ENTRY_POINTS.values()})
-    paths = {src: _lib_path(src) for src in sources}
+    paths = {src: os.path.join(build_dir(), f"lib{os.path.splitext(src)[0]}-{digest}.so") for src in sources}
     todo = [src for src in sources if not os.path.exists(paths[src])]
     if not todo:
         return paths
-    os.makedirs(build_dir(), exist_ok=True)
+    include = os.path.join(build_dir(), f"include-{digest}")
+    os.makedirs(include, exist_ok=True)
+    for name, text in headers.items():
+        _write(os.path.join(include, name), text)
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
     for src in todo:
         tmp = f"{paths[src]}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", include, "-o", tmp, os.path.join(CSRC, src)]
         procs[src] = (
             tmp,
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

@@ -20,9 +20,13 @@ Three hand-written kernels run it on the card (``csrc/pairing_kernels.cu``
 over ``csrc/tower.cuh``): P2 ``kzg_miller_loop`` (:func:`miller_loop`, the
 JAX ``miller_loop_kernel``), P3 ``kzg_final_exp`` (:func:`final_exp`, the
 easy part, the hard chain and the tail), and P1 ``kzg_fp12_op``
-(:func:`.tower.fp12_op`, one Fp12 function at a time).  The bits of |x| are
-public, so the kernels and the plain versions branch on them where the JAX
-programs compute both outcomes and select: the same function.
+(:func:`.tower.fp12_op`, one Fp12 function at a time).  Each gives a
+Miller lane, check or element a group of G lanes with its state in shared
+memory, and runs the programs of :mod:`.pairing_programs`: each step's
+independent Fp products side by side over the group's lanes (G by width,
+``tower.pairing_group``).  The bits of |x| are public, so the kernels and
+the plain versions branch on them where the JAX programs compute both
+outcomes and select: the same function.
 
 On a CPU tensor each wrapper runs its plain version (the packed tower over
 the plain Fp operations, ``tower.PLAIN``); on a CUDA tensor it launches its
@@ -194,10 +198,11 @@ def _check_words(name, x, shape, dtype=torch.int32):
         raise ValueError(f"{name}: expected {dtype} [..., {', '.join(map(str, shape))}], got {x.dtype} {tuple(x.shape)}")
 
 
-def miller_loop(xp, yp, q, active):
+def miller_loop(xp, yp, q, active, group: int | None = None):
     """Batched f_{x,Q}(P) (conjugated, x < 0), one lane a (pair, check): on
-    the card one launch of ``kzg_miller_loop``, all 63 steps; on the CPU the
-    plain version.  Shapes as :func:`miller_loop_plain`."""
+    the card one launch of ``kzg_miller_loop``, all 63 steps, ``group``
+    lanes a Miller lane (``tower.pairing_group`` by default); on the CPU
+    the plain version.  Shapes as :func:`miller_loop_plain`."""
     for name, x, shape in (("xp", xp, (NW,)), ("yp", yp, (NW,)), ("q", q, (2, 2, NW))):
         _check_words(f"kzg_miller_loop {name}", x, shape)
     shape = tuple(xp.shape[:-1])
@@ -212,10 +217,12 @@ def miller_loop(xp, yp, q, active):
     if n:
         if n >= 1 << 31:
             raise ValueError(f"kzg_miller_loop: {n} lanes exceed the kernel's 32-bit index")
+        group = T2.pairing_group(n) if group is None else group
+        T2._check_group("kzg_miller_loop", group)
         qx, qy = q[..., 0, :, :].contiguous(), q[..., 1, :, :].contiguous()
         _build.launch(
             "kzg_miller_loop", xp.device, xp.contiguous(), yp.contiguous(), qx, qy,
-            active.contiguous().view(torch.uint8), out, n,
+            active.contiguous().view(torch.uint8), out, n, group,
         )
     return out
 
@@ -246,10 +253,11 @@ def final_exp_plain(f, bits=_ABS_X_BITS, value: bool = False):
     return out if value else T2.fp12_is_one(out)
 
 
-def final_exp(f, bits=_ABS_X_BITS, value: bool = False):
+def final_exp(f, bits=_ABS_X_BITS, value: bool = False, group: int | None = None):
     """The final exponentiation and is-one test of each check: on the card
-    one launch of ``kzg_final_exp``; on the CPU the plain version.  Shapes
-    as :func:`final_exp_plain`; ``bits`` up to 64 zeros and ones."""
+    one launch of ``kzg_final_exp``, ``group`` lanes a check
+    (``tower.pairing_group`` by default); on the CPU the plain version.
+    Shapes as :func:`final_exp_plain`; ``bits`` up to 64 zeros and ones."""
     _check_words("kzg_final_exp", f, T2.FP12_SHAPE)
     if f.dim() < 5 or f.shape[0] != 2:
         raise ValueError(f"kzg_final_exp: expected [2, ..., 2, 3, 2, 12] (the pair axis first), got {tuple(f.shape)}")
@@ -264,7 +272,9 @@ def final_exp(f, bits=_ABS_X_BITS, value: bool = False):
     if k:
         if k >= 1 << 31:
             raise ValueError(f"kzg_final_exp: {k} checks exceed the kernel's 32-bit index")
-        _build.launch("kzg_final_exp", f.device, f.contiguous(), out, k, bytes(bits), len(bits), int(value))
+        group = T2.pairing_group(k) if group is None else group
+        T2._check_group("kzg_final_exp", group)
+        _build.launch("kzg_final_exp", f.device, f.contiguous(), out, k, bytes(bits), len(bits), int(value), group)
     return out if value else out.view(torch.bool)
 
 

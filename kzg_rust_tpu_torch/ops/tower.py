@@ -29,7 +29,8 @@ products of an Fp12 product), and the linear combinations likewise:
   ``kzg_fp_add``, ``kzg_fp_sub`` and the Fp chain ``kzg_fp_pow_const``, on
   the CPU their plain versions), and its six Fp12 functions
   (:data:`FP12_OPS`) go through :func:`fp12_op`: one launch of P1 on a
-  CUDA tensor, the plain version on a CPU one.
+  CUDA tensor (each function's program of :mod:`.pairing_programs` over a
+  group of lanes an element), the plain version on a CPU one.
 
 Every value is canonical, so each function gives the same words whatever
 the order of its field operations: only the formulas that are not plain
@@ -298,6 +299,28 @@ FP12_OPS = {"mul": 0, "sqr": 1, "cyclo_sqr": 2, "frobenius": 3, "inv": 4, "mul_b
 FP12_SHAPE = (2, 3, 2, NW)
 LINE_SHAPE = (3, 2, NW)
 
+# The kernels P1-P3 give each element, Miller lane or check a group of G
+# lanes of a warp (csrc/pairing_kernels.cu).  The default by width is the
+# card's (chip_smoke.py phase 3h sweeps G; PERF.md).
+GROUP_LANES = (8, 16, 32)
+GROUP_NARROW_BELOW = 2048  # groups a launch from which G is 16, below it 32
+
+
+def pairing_group(groups: int) -> int:
+    """G for a launch of ``groups`` groups (elements, Miller lanes or
+    checks): 32 lanes a group below 2,048 groups, where the card has room
+    for every group's warp and a level's products spread widest; 16 from
+    there, where two groups share a warp and fewer lanes idle (chip_smoke.py
+    phase 3h's sweep on an H100 80GB HBM3 at 700 W: P2 at [2, 1024] 1.99
+    ms with 16, 2.20 with 32; P3 at 1,024 checks 2.26 ms with 32, 2.43
+    with 16)."""
+    return 32 if groups < GROUP_NARROW_BELOW else 16
+
+
+def _check_group(name: str, group) -> None:
+    if group not in GROUP_LANES:
+        raise ValueError(f"{name}: group must be one of {GROUP_LANES}, got {group}")
+
 
 def fp12_op_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of P1 on any device: ``PLAIN``'s function ``op``."""
@@ -305,12 +328,12 @@ def fp12_op_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> to
     return fn(a) if b is None else fn(a, b)
 
 
-def fp12_op(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+def fp12_op(op: str, a: torch.Tensor, b: torch.Tensor | None = None, group: int | None = None) -> torch.Tensor:
     """Fp12 function ``op`` (:data:`FP12_OPS`) on packed elements ``a``
     [..., 2, 3, 2, 12] and, for ``mul`` and ``mul_by_line``, ``b`` (an Fp12,
     or the line's [..., 3, 2, 12]), leading axes broadcast.  On the card one
-    launch of ``kzg_fp12_op`` over the elements; on the CPU the plain
-    version."""
+    launch of ``kzg_fp12_op`` over the elements, ``group`` lanes an element
+    (:func:`pairing_group` by default); on the CPU the plain version."""
     if op not in FP12_OPS:
         raise ValueError(f"kzg_fp12_op: unknown op {op!r}")
     binary = op in ("mul", "mul_by_line")
@@ -331,7 +354,9 @@ def fp12_op(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Te
     if n:
         if n >= 1 << 31:
             raise ValueError(f"kzg_fp12_op: {n} elements exceed the kernel's 32-bit index")
-        _build.launch("kzg_fp12_op", a.device, a, b, out, n, FP12_OPS[op])
+        group = pairing_group(n) if group is None else group
+        _check_group("kzg_fp12_op", group)
+        _build.launch("kzg_fp12_op", a.device, a, b, out, n, FP12_OPS[op], group)
     return out
 
 

@@ -41,6 +41,7 @@ from kzg_rust_tpu_torch.ops import _build
 from kzg_rust_tpu_torch.ops import jax_state as JS
 from kzg_rust_tpu_torch.ops import limbs as L
 from kzg_rust_tpu_torch.ops import pairing as P
+from kzg_rust_tpu_torch.ops import pairing_programs as PP
 from kzg_rust_tpu_torch.ops import tower as T
 
 from .conftest import REPO_ROOT, VECTOR_DIR
@@ -351,14 +352,194 @@ def test_pairings_verify_device_needs_cuda(monkeypatch):
 
 
 def test_pairing_source_constants_match_golden():
-    """csrc/pairing_kernels.cu's constants: |x| (the Miller loop's bits),
-    its 64 bits, and b3 = 12 + 12u in Montgomery form."""
+    """csrc/pairing_kernels.cu's constants: |x| (the Miller loop's bits)
+    and its 64 bits; the room of its P3 sequence for the longest one the
+    entry point takes (64 set bits); b3 = 12 + 12u is the programs' (12 xi
+    by additions, held to the replica's b3 by test_p2_programs_match_replica)."""
     text = (pathlib.Path(_build.CSRC) / "pairing_kernels.cu").read_text()
     assert int(re.search(r"kAbsX = (0x[0-9a-f]+)ull;", text).group(1), 16) == gf.BLS_X
-    assert int(re.search(r"kAbsXBits = (\d+);", text).group(1)) == gf.BLS_X.bit_length()
-    body = re.search(r"__constant__ Fe kB3Mont = \{(.*?)\};", text, re.S).group(1)
-    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", body)]
-    assert sum(w << (32 * j) for j, w in enumerate(words)) == _mont(12)
-    assert P._ABS_X_BITS == tuple((gf.BLS_X >> i) & 1 for i in range(62, -1, -1))
+    bits = int(re.search(r"kAbsXBits = (\d+);", text).group(1))
+    assert bits == gf.BLS_X.bit_length()
+    room = re.search(r"kMaxSeq = 1 \+ 5 \* \(2 \* kAbsXBits \+ 2\) \+ 3;", text)
+    assert room and 1 + 5 * (2 * bits + 2) + 3 >= len(PP.p3_sequence((1,) * bits))
+    assert P._ABS_X_BITS == tuple((gf.BLS_X >> i) & 1 for i in range(62, -1, -1)) == PP.X_BITS
     for entry in ("kzg_fp12_op", "kzg_miller_loop", "kzg_final_exp"):
         assert _build.ENTRY_POINTS[entry][0] == "pairing_kernels.cu"
+
+
+# ---------------------------------------------------------------------------
+# The kernels' programs (ops/pairing_programs.py) with Python ints
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def programs():
+    return PP.build()
+
+
+def _frame(programs, kernel, regs: dict) -> list[int]:
+    frame = PP.new_frame(kernel, programs)
+    for name, value in regs.items():
+        first, _ = programs[kernel]["registers"][name]
+        flat = PP.flatten(value)
+        frame[first : first + len(flat)] = flat
+    return frame
+
+
+def _run(programs, kernel, names, frame) -> list[int]:
+    for name in names:
+        PP.execute(programs[kernel]["programs"][name], frame)
+    return frame
+
+
+def _reg(programs, kernel, frame, name):
+    first, n = programs[kernel]["registers"][name]
+    return PP.nest(frame[first : first + n], PP._shape(n))
+
+
+def _fp_words(words):
+    return [sum(w << (32 * j) for j, w in enumerate(words[k : k + 12])) for k in range(0, len(words), 12)]
+
+
+def test_pairing_programs_header_decodes(programs):
+    """pairing_programs.cuh, the tables P1-P3 read, as the build writes it:
+    its tables decode to the levels and operations of every program the
+    tests below run, and its constants are the Montgomery forms of each
+    kernel's (the Frobenius coefficients among them); every level holds
+    operations within the frame's slots."""
+    text = _build.generated()["pairing_programs.cuh"]
+    assert text == PP.header_text(programs)
+
+    def table(name):
+        body = re.search(name + r"\[\d+\] = \{(.*?)\};", text, re.S).group(1)
+        return [int(w, 0) for w in re.findall(r"0x[0-9a-f]+|\d+", body)]
+
+    first, levels, ops, words = table("kProgramLevel"), table("kLevels"), table("kOps"), table("kConstWords")
+    names = [(kernel, name) for kernel, k in programs.items() for name in k["programs"]]
+    assert len(first) == len(names) + 1
+    for p, (kernel, name) in enumerate(names):
+        decoded = []
+        for lv in range(first[p], first[p + 1]):
+            begin, end = levels[lv] >> 2, levels[lv + 1] >> 2
+            got = [PP.decode(ops[2 * i : 2 * i + 2]) for i in range(begin, end)]
+            decoded.append((levels[lv] & 3, got))
+        assert decoded == programs[kernel]["programs"][name].levels, (kernel, name)
+    consts = [c for k in programs.values() for c in k["consts"]]
+    assert _fp_words(words) == [_mont(c) for c in consts]
+    gammas = {c % gf.P for g in gf._GAMMA_POWERS[1:] for c in g} - {0}
+    assert gammas <= set(programs["p3"]["consts"]) and gammas <= set(programs["p1"]["consts"])
+    for kernel, k in programs.items():
+        assert k["slots"] <= PP.MAX_SLOTS
+        for prog in k["programs"].values():
+            for kind, ops in prog.levels:
+                assert ops and all(0 <= s < k["slots"] for op in ops for s in [op[1]] + [slot for slot, _ in op[4]])
+                assert kind != PP.LEVEL_INV or len(ops) == 1
+
+
+def test_build_writes_generated_headers(monkeypatch, tmp_path):
+    """_build.build() writes the generated headers into an include
+    directory named by the sources' hash before it compiles, passes it to
+    every nvcc, names the libraries by the same hash, and compiles
+    nothing once the libraries exist (nvcc stood in for by a fake)."""
+    calls = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            calls.append(cmd)
+            self.out = cmd[cmd.index("-o") + 1]
+            self.returncode = 0
+
+        def communicate(self):
+            with open(self.out, "w") as fh:
+                fh.write("lib")
+            return "ptxas info", None
+
+    monkeypatch.setenv("KZG_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    paths = _build.build()
+    sources = {src for src, _ in _build.ENTRY_POINTS.values()}
+    assert set(paths) == sources and len(calls) == len(sources)
+    (include,) = tmp_path.glob("include-*")
+    digest = include.name.removeprefix("include-")
+    assert (include / "pairing_programs.cuh").read_text() == _build.generated()["pairing_programs.cuh"]
+    assert not (pathlib.Path(_build.CSRC) / "pairing_programs.cuh").exists()
+    for cmd in calls:
+        assert cmd[cmd.index("-I") + 1] == str(include)
+    assert all(pathlib.Path(p).name.endswith(f"-{digest}.so") and pathlib.Path(p).exists() for p in paths.values())
+    assert _build.build() == paths and len(calls) == len(sources)
+
+
+def test_p1_programs_match_golden(programs):
+    """Each of P1's programs (one Fp12 function over the group) equals
+    golden/field.py's function: the product, squaring, Granger-Scott
+    squaring (its formula on any input), Frobenius, inversion (and
+    inv(0) = 0) and the sparse line product."""
+    a, b = rand_fp12(), rand_fp12()
+    line = (rand_fp2(), rand_fp2(), rand_fp2())
+    want = {
+        "mul": gf.fp12_mul(a, b),
+        "sqr": gf.fp12_sqr(a),
+        "cyclo_sqr": gf.fp12_cyclo_sqr(a),
+        "frobenius": gf.fp12_frobenius(a),
+        "inv": gf.fp12_inv(a),
+        "mul_by_line": gf.fp12_mul(a, _sparse_line_fp12(*line)),
+    }
+    assert set(want) == set(programs["p1"]["programs"]) == set(T.FP12_OPS)
+    for op, w in want.items():
+        bb = PP.nest(PP.flatten(line) + [0] * 6, (2, 3, 2)) if op == "mul_by_line" else b
+        frame = _run(programs, "p1", [op], _frame(programs, "p1", {"A": a, "B": bb}))
+        assert _reg(programs, "p1", frame, "Z") == w, op
+    frame = _run(programs, "p1", ["inv"], _frame(programs, "p1", {"A": gf.FP12_ZERO}))
+    assert _reg(programs, "p1", frame, "Z") == gf.FP12_ZERO
+
+
+def test_p2_programs_match_replica(programs):
+    """P2's two step programs equal one step of the golden replica (the
+    square, tangent line and doubling; then the chord line and mixed add),
+    and the whole loop over the bits of |x| (conjugated) equals the
+    replica's Miller value."""
+    p_g1 = gc.g1_mul(gc.G1_GENERATOR, 13)
+    q = gc.g2_mul(gc.G2_GENERATOR, 7)
+    f = rand_fp12()
+    t, _ = _rand_proj_g2(3)
+    regs = {"F": f, "T": t, "Q": q, "P": p_g1}
+    f_dbl = gf.fp12_mul(gf.fp12_sqr(f), _sparse_line_fp12(*g_tangent(t, p_g1)))
+    t_dbl = g_double(t)
+    frame = _run(programs, "p2", ["dbl"], _frame(programs, "p2", regs))
+    assert (_reg(programs, "p2", frame, "F"), _reg(programs, "p2", frame, "T")) == (f_dbl, t_dbl)
+    frame = _run(programs, "p2", ["dbl_add"], _frame(programs, "p2", regs))
+    f_add = gf.fp12_mul(f_dbl, _sparse_line_fp12(*g_chord(t_dbl, q, p_g1)))
+    assert (_reg(programs, "p2", frame, "F"), _reg(programs, "p2", frame, "T")) == (f_add, g_madd(t_dbl, q))
+    assert PP.p2_sequence() == ["dbl_add" if b else "dbl" for b in P._X_BITS]
+    start = {"F": gf.FP12_ONE, "T": (q[0], q[1], gf.FP2_ONE), "Q": q, "P": p_g1}
+    frame = _run(programs, "p2", PP.p2_sequence(), _frame(programs, "p2", start))
+    assert gf.fp12_conj(_reg(programs, "p2", frame, "F")) == g_miller(p_g1, q)
+
+
+def test_p3_programs_match_golden(programs):
+    """P3's sequence of programs: with the bits (1, 0) its value is
+    m^H for the easy part m of f0 f1 (as the plain composition test);
+    with |x| the pairing check of two Miller values from P2's programs is
+    one for e(P, Q) e(-P, Q) and not for e(P, Q) e(-P, 2Q)."""
+    f0, f1 = rand_fp12(), rand_fp12()
+    xs = -6
+    h = (xs - 1) ** 2 * (xs + gf.P) * (xs**2 + gf.P**2 - 1) + 3
+    x = gf.fp12_mul(f0, f1)
+    m = gf.fp12_mul(gf.fp12_conj(x), gf.fp12_inv(x))
+    m = gf.fp12_mul(gf.fp12_frobenius_n(m, 2), m)
+    frame = _run(programs, "p3", ["easy"], _frame(programs, "p3", {"U": f0, "W1": f1}))
+    assert all(_reg(programs, "p3", frame, r) == m for r in ("M", "ACC", "BASE"))
+    frame = _run(programs, "p3", PP.p3_sequence((1, 0)), _frame(programs, "p3", {"U": f0, "W1": f1}))
+    assert _reg(programs, "p3", frame, "U") == gf.fp12_pow(m, h)
+
+    def miller(p_g1, q):
+        start = {"F": gf.FP12_ONE, "T": (q[0], q[1], gf.FP2_ONE), "Q": q, "P": p_g1}
+        return gf.fp12_conj(_reg(programs, "p2", _run(programs, "p2", PP.p2_sequence(), _frame(programs, "p2", start)), "F"))
+
+    p_g1, q = gc.g1_mul(gc.G1_GENERATOR, 5), gc.G2_GENERATOR
+    for q2, want in ((q, True), (gc.g2_mul(q, 2), False)):
+        regs = {"U": miller(p_g1, q), "W1": miller(gc.g1_neg(p_g1), q2)}
+        frame = _run(programs, "p3", PP.p3_sequence(P._ABS_X_BITS), _frame(programs, "p3", regs))
+        assert (_reg(programs, "p3", frame, "U") == gf.FP12_ONE) is want

@@ -212,16 +212,22 @@ def _fp_values(words: list[int]) -> list[int]:
 
 
 def test_tower_source_constants_match_golden():
-    """csrc/tower.cuh's immediates: mont(1), the Frobenius coefficients
-    gamma^0..gamma^5 (c0 then c1) of golden/field.py, and the Fermat
-    inversion's digits of p - 2 with their largest digit; P1's op codes are
-    the wrapper's."""
+    """csrc/tower.cuh's immediates: mont(1) and the Fermat inversion's
+    digits of p - 2 with their largest digit; the programs' constants
+    (pairing_programs.cuh as the build generates it) hold the Frobenius
+    coefficients gamma^1..gamma^5 of golden/field.py (c0 and c1) and the
+    norms of gamma^k that frob^2 multiplies by; P1's op codes are the
+    wrapper's, in the order of its programs."""
     text = _source("tower.cuh")
     mont = lambda v: v * L.FP.mont_r % gf.P  # noqa: E731
     one = re.search(r"__constant__ Fe kOneMont = \{(.*?)\};", text, re.S).group(1)
     assert _fp_values(_words_of(one)) == [mont(1)]
-    gamma = re.search(r"__constant__ Fe2 kGamma\[6\] = \{(.*?)\n\};", text, re.S).group(1)
-    assert _fp_values(_words_of(gamma)) == [mont(c) for g in gf._GAMMA_POWERS for c in g]
+    programs_h = _build.generated()["pairing_programs.cuh"]
+    consts = set(_fp_values(_words_of(re.search(r"kConstWords\[\d+\] = \{(.*?)\};", programs_h, re.S).group(1))))
+    gammas = [c for g in gf._GAMMA_POWERS[1:] for c in g if c] + [(g[0] ** 2 + g[1] ** 2) % gf.P for g in gf._GAMMA_POWERS[1:]]
+    assert {mont(c) for c in gammas} <= consts
+    programs = re.findall(r"^  kP1(\w+) = (\d+),$", programs_h, re.M)
+    assert [name for name, _ in programs] == ["".join(p.capitalize() for p in op.split("_")) for op in T.FP12_OPS]
     digits = re.search(r"__constant__ PowDigits kInvDigits = \{\s*\{([^}]*)\},\s*(\d+),\s*(\d+)\}", text, re.S)
     d = [int(x) for x in digits.group(1).split(",")]
     assert d == list(L.pow_digits(gf.P - 2)) and int(digits.group(2)) == len(d) and int(digits.group(3)) == max(d)
