@@ -8,6 +8,7 @@ whatever real accelerator is attached instead.
 
 from __future__ import annotations
 
+import faulthandler
 import os
 import pathlib
 
@@ -38,6 +39,44 @@ os.environ.setdefault("KZG_TPU_SHARD", "0")
 # repeat test runs skip XLA compilation.
 jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/jax_kzg"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+# A per-test backstop against hangs; the `slow` marker, not this, keeps the
+# suite inside its time budget.  In an xdist worker, a test still running
+# TEST_LIMIT_S seconds after it started dumps every thread's stack and ends
+# its worker: xdist reports that one test as failed, starts a new worker and
+# the run goes on.  faulthandler needs no plugin and, unlike signal.alarm,
+# fires while the main thread is inside a long C++ call (an XLA compile).
+# With -n 0 nothing is armed, nor for a `slow` test, whose cold compile may
+# outlast the limit.  KZG_TEST_LIMIT_S overrides the limit.
+TEST_LIMIT_S = float(os.environ.get("KZG_TEST_LIMIT_S", "900"))
+_BACKSTOP_ARMED = bool(os.environ.get("PYTEST_XDIST_WORKER"))
+_BACKSTOP_FD = pytest.StashKey[int]()
+
+
+def pytest_configure(config):
+    if _BACKSTOP_ARMED:
+        # The stack goes to the worker's own stderr: during a test, fd 2 is
+        # redirected into pytest's capture file, which dies with the worker.
+        config.stash[_BACKSTOP_FD] = os.dup(2)
+
+
+def pytest_unconfigure(config):
+    if _BACKSTOP_FD in config.stash:
+        os.close(config.stash[_BACKSTOP_FD])
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_protocol(item, nextitem):
+    if not _BACKSTOP_ARMED or item.get_closest_marker("slow"):
+        return (yield)
+    faulthandler.dump_traceback_later(
+        TEST_LIMIT_S, exit=True, file=item.config.stash[_BACKSTOP_FD]
+    )
+    try:
+        return (yield)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 VECTOR_DIR = REPO_ROOT / "tests" / "vectors"

@@ -129,6 +129,7 @@ def test_pipeline_batch_of_two(settings, golden, jaxbe, batch):
     )
 
 
+@pytest.mark.slow
 def test_pipeline_chunked_barycentric(settings, golden, jaxbe, monkeypatch):
     """Large single-device batches dispatch the barycentric in fixed blob
     chunks and stage 1 in larger ones (measured 22% / 17% faster at
@@ -196,7 +197,7 @@ def _tiled(batch64, n):
     return (blobs * reps)[:n], (cs * reps)[:n], (ps * reps)[:n]
 
 
-@pytest.mark.slow_compile
+@pytest.mark.slow
 class TestAtScaleErrorLanes:
     """VERDICT round-4 item 5: a single corrupted element inside a LARGE
     (>=512) forced-device batch must surface through the chunked dispatches
@@ -208,8 +209,8 @@ class TestAtScaleErrorLanes:
     the batch so a chunk-combine bug that only honors chunk 0 would pass a
     corrupted batch.
 
-    slow_compile: the 512/2048-wide stage kernels take tens of minutes of
-    first-run XLA-CPU compile (cached afterwards); on real hardware
+    slow: the 512/2048-wide stage kernels take minutes of first-run
+    XLA-CPU compile each (cached afterwards); on real hardware
     (KZG_TPU_TEST_REAL_DEVICE=1) they compile in seconds — the recorded
     at-scale run is in SCALING.md, and the MAINNET-width equivalent is
     tools/probe_error_lanes.py."""

@@ -90,6 +90,7 @@ def test_sharded_barycentric_matches_golden():
     assert got == want
 
 
+@pytest.mark.slow
 def test_sharded_batch_stages_match_golden():
     """Blob-axis sharded batch verification, stages 1 + 2 (device
     decompression + window chain + GLV subgroup checks, then the GLV
@@ -143,6 +144,7 @@ def test_sharded_batch_stages_match_golden():
     )
 
 
+@pytest.mark.slow
 def test_public_api_batch_hits_sharded_kernels(monkeypatch):
     """VERDICT round-1 item 3 done-criterion: a public-API batch call on the
     multi-device CPU mesh must route through the sharded kernels (asserted
